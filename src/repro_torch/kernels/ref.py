@@ -1,0 +1,173 @@
+"""Plain PyTorch versions of the four CUDA kernels.
+
+Each function is the semantic definition of its kernel (ported from the
+reference's ``kernels/ref.py``).  On a CPU tensor `ops` runs these; on the
+card the kernels run instead, and ``chip_smoke.py`` holds each kernel
+against its plain version on the same inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+_INT32_MAX = 2**31 - 1
+
+
+def race_update_ref(counts: torch.Tensor, codes: torch.Tensor,
+                    sign: int = 1) -> torch.Tensor:
+    """counts (L, W) int32, codes (B, L) → counts + sign * histogram, where
+    the histogram is ``#{b : codes[b, l] = w}``.  Codes outside [0, W) are
+    ignored (hashing never produces them)."""
+    L, W = counts.shape
+    rows = torch.arange(L, device=codes.device).expand(codes.shape)
+    inside = (codes >= 0) & (codes < W)
+    flat = torch.where(inside, rows * W + codes.long(), L * W).reshape(-1)
+    hist = torch.zeros(L * W + 1, dtype=torch.int32, device=codes.device)
+    hist.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return counts + sign * hist[:L * W].view(L, W)
+
+
+def race_hist_ref(codes: torch.Tensor, W: int) -> torch.Tensor:
+    """Per-row histogram of ``codes (B, L)`` → (L, W) int32."""
+    zeros = torch.zeros((codes.shape[1], W), dtype=torch.int32,
+                        device=codes.device)
+    return race_update_ref(zeros, codes)
+
+
+def batch_score_ref(qs: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """qs (B, d), cands (B, M, d) → squared L2 distances (B, M) in fp32,
+    diff-based (no matmul identity)."""
+    return ((cands.float() - qs.float()[:, None, :]) ** 2).sum(-1)
+
+
+def batch_score_topk_ref(qs: torch.Tensor, cands: torch.Tensor,
+                         ok: torch.Tensor, k: int):
+    """Masked squared-L2 top-k per query: ``(d2 (B, k) ascending, idx (B, k)
+    int32 into M)``.  Masked entries score inf; ties resolve to the lowest
+    candidate index (``lax.top_k`` semantics, from a stable sort), so a
+    fully masked row gives inf with idx ``0..k-1``."""
+    d2 = torch.where(ok, batch_score_ref(qs, cands),
+                     torch.full((), float("inf"), device=qs.device))
+    vals, idx = torch.sort(d2, dim=1, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def swakde_segment_pass_ref(
+    cell_ts: torch.Tensor,    # (R, G, levels, S) int32 — gathered EH rings
+    cell_num: torch.Tensor,   # (R, G, levels) int32 — live buckets per level
+    done: torch.Tensor,       # (R, G) int32 — arrivals already committed
+    sorted_ts: torch.Tensor,  # (R, C) int32 — per-row stamps, sorted order
+    seg_first: torch.Tensor,  # (R, G) int32 — first sorted position
+    seg_len: torch.Tensor,    # (R, G) int32 — arrivals hitting each segment
+    *,
+    window: int,
+    maxb: int,
+    n_levels: int,
+    cap: int = 0,
+):
+    """One closed-form, expiry-free commit pass over every (row, segment)
+    pair → ``(cell_ts, cell_num, done)``; the contract of the reference's
+    ``swakde_segment_pass_ref``, op for op.
+
+    A segment is one cell's run of unit adds at ascending stamps
+    ``sorted_ts[r, seg_first + done .. seg_first + seg_len)``.  The pass
+    expires each active cell at its first arrival, takes the longest prefix
+    of arrivals during which nothing expires (capped at ``cap`` when
+    ``cap > 0``), and settles the DGIM cascade level by level in closed
+    form.  Callers loop until ``done == seg_len``."""
+    R, G, LV, S = cell_ts.shape
+    C = sorted_ts.shape[1]
+    dev = cell_ts.device
+    i32 = torch.int32
+    sidx = torch.arange(S, dtype=i32, device=dev)
+
+    active = done < seg_len                                      # (R, G)
+    start = seg_first + done                                     # (R, G)
+    t_first = torch.gather(sorted_ts, 1, start.clamp(0, C - 1).long())
+
+    # --- expire active cells at their first arrival ------------------------
+    live = (sidx < cell_num[..., None]) & \
+        (cell_ts > (t_first - window)[..., None, None])          # (R,G,LV,S)
+    cell_num = torch.where(active[..., None], live.sum(-1).to(i32), cell_num)
+    oldest = torch.where(live, cell_ts, _INT32_MAX).amin(dim=(-2, -1))
+
+    # --- expiry-free pass length (both conditions select a prefix) ---------
+    pos = torch.arange(C, dtype=i32, device=dev)[None, None, :]
+    thr = (sorted_ts - window)[:, None, :]                       # (R, 1, C)
+    in_seg = (pos >= start[..., None]) & \
+        (pos < (seg_first + seg_len)[..., None])
+    ok = (thr < oldest[..., None]) & (thr < t_first[..., None])
+    p = (in_seg & ok).sum(-1).to(i32)                            # (R, G)
+    if cap:
+        p = torch.clamp(p, max=cap)
+    p = torch.where(active, torch.minimum(p, seg_len - done), 0)
+
+    # --- the per-level closed form -----------------------------------------
+    sorted_b = sorted_ts[:, None, :].expand(R, G, C)
+
+    def queue(i, ts_l, m0, P, np_, b, stride):
+        """Oldest-first queue lookup: reversed live ring ++ P ++ strided
+        tail of ``sorted_ts``; ``i`` (R, G, n)."""
+        K = (m0 + np_)[..., None]
+        ring = torch.gather(ts_l, -1, (m0[..., None] - 1 - i).clamp(0, S - 1).long())
+        pre = torch.gather(P, -1, (i - m0[..., None]).clamp(0, S - 1).long())
+        tpos = (b[..., None] + (i - K) * stride[..., None]).clamp(0, C - 1)
+        tail = torch.gather(sorted_b, -1, tpos.long())
+        return torch.where(i < m0[..., None], ring,
+                           torch.where(i < K, pre, tail))
+
+    cts = cell_ts.clone()
+    cnum = cell_num.clone()
+    P = torch.zeros((R, G, S), dtype=i32, device=dev)
+    np_ = torch.zeros((R, G), dtype=i32, device=dev)
+    b = start.clamp(0, C - 1)
+    stride = torch.ones((R, G), dtype=i32, device=dev)
+    r = p
+    odd = (2 * sidx + 1).expand(R, G, S)
+    for lvl in range(LV):
+        ts_l = cts[:, :, lvl]
+        m0 = cnum[:, :, lvl]
+        p_l = np_ + r                                            # arrivals
+        K = m0 + np_
+        total = m0 + p_l
+        # The level fills to maxb+1 once, then every second arrival fires a
+        # merge; the top level never merges.
+        mu = torch.where((total <= maxb) | (lvl == n_levels - 1), 0,
+                         1 + (p_l - (maxb + 1 - m0)) // 2)
+        new_num = total - 2 * mu
+        arr = queue(total[..., None] - 1 - sidx, ts_l, m0, P, np_, b, stride)
+        old = torch.gather(ts_l, -1,
+                           (sidx - p_l[..., None]).clamp(0, S - 1).long())
+        new_ts = torch.where(sidx < p_l[..., None], arr, old)
+        # Merge j consumes queue[2j], queue[2j+1] and carries up the newer
+        # stamp queue[2j+1]: those below K form the explicit prefix, the rest
+        # a stride-doubled window into sorted_ts.
+        np_n = torch.minimum(mu, K // 2)
+        r_n = mu - np_n
+        P_n = queue(odd, ts_l, m0, P, np_, b, stride)
+        b_n = (b + (2 * np_n + 1 - K) * stride).clamp(0, C - 1)
+        cts[:, :, lvl] = new_ts
+        cnum[:, :, lvl] = new_num
+        P, np_, b, stride, r = P_n, np_n, b_n, stride * 2, r_n
+    return cts, cnum, done + p
+
+
+def sann_table_scatter_ref(
+    tables: torch.Tensor,     # (L, n_buckets, bucket_cap) int32, updated in place
+    table_ptr: torch.Tensor,  # (L, n_buckets) int32 — per-bucket ring pointers
+    s_l: torch.Tensor,        # (E,) int32 — row of each sorted append
+    s_c: torch.Tensor,        # (E,) int32 — bucket code of each append
+    rank: torch.Tensor,       # (E,) int32 — rank within its (row, code) run
+    val: torch.Tensor,        # (E,) int32 — slot id to write (-1 tombstone)
+    mask: torch.Tensor,       # (E,) bool — append lands in the final window
+) -> torch.Tensor:
+    """Sorted-segment ring append, in place: entry i writes ``val[i]`` at
+    ring position ``(table_ptr[s_l, s_c] + rank) % bucket_cap`` (floored)
+    of its bucket when ``mask[i]`` is set.  The masked entries of one bucket
+    are its last ``bucket_cap`` ranks, so their positions are distinct and
+    the order of the writes does not matter.  Returns ``tables``."""
+    L, NB, cap = tables.shape
+    s_l, s_c = s_l.long(), s_c.long()
+    ring_pos = (table_ptr[s_l, s_c].long() + rank.long()) % cap
+    flat = (s_l * NB + s_c) * cap + ring_pos
+    tables.view(-1)[flat[mask]] = val[mask].to(tables.dtype)
+    return tables

@@ -15,3 +15,9 @@ if settings is not None:
     settings.register_profile("repro", deadline=None, max_examples=25,
                               derandomize=True)
     settings.load_profile("repro")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
