@@ -14,14 +14,27 @@ user calls, at full width:
   2048, with recall@50 against an exact top-50 computed here;
 * **SW-AKDE + RACE** on a news-headlines-like stream (d = 384, 1 048 576
   points, chunks of 4096), ``L = W = 96``, window 65 536, EH eps 0.1, then
-  10 000 queries through ``swakde_query_batch`` and ``race_query_batch``.
+  10 000 queries through ``swakde_query_batch`` and ``race_query_batch``:
+  once with p-stable params (k = 2, w = 4) and once with SRP params (k = 2,
+  as ``benchmarks/bench_kde.py`` builds them), whose hashing is the
+  ``srp_hash`` kernel;
+* **the per-point oracles** (the paper's Alg. 1 and Alg. 2 one point and one
+  query at a time) on those states: ``sann_query`` over 1024 queries and
+  ``sann_query_topk`` over 256 (the ``cand_score`` kernel), held against the
+  batch engine; ``sann_insert_stream`` over 16 384 points against
+  ``sann_insert_batch``; ``swakde_stream`` and ``race_update`` over 8192
+  points against the chunked paths; the per-query KDE functions against the
+  batch ones; ``swakde_merge``; and the Corollary-4.2 ``BatchSWAKDE``.
+  Only the oracle streams are cut (per-point Python loops).
 
-Kernel launch counts are zeroed just before each path and read just after.
-Each path's first 8 chunks are re-run on the CPU (the kernels' plain
-versions) with the same keep masks and codes, and must give bit-identical
-state.  Then every kernel is held against its plain PyTorch version on the
-card at the main path's shapes and timed beside it (and beside the one
-PyTorch call that computes the same function, where there is one).
+Keep decisions come from a threefry key on each device.  Kernel launch
+counts are zeroed just before each path and read just after.  Each path's
+first 8 chunks are re-run on the CPU (the kernels' plain versions) with the
+same codes, and with keep masks the CPU draws itself from the same key, and
+must give bit-identical state.  Then every kernel is held against its plain
+PyTorch version on the card at the main path's shapes and timed beside it
+(and beside the one PyTorch call that computes the same function, where
+there is one).
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -47,16 +60,25 @@ KDE_N, KDE_QUERIES, KDE_DIM = 1_048_576, 10_000, 384
 CHUNK, QUERY_BLOCK, TOPK = 4096, 2048, 50
 CROSS_CHUNKS = 8
 KDE_ERR_QUERIES = 48
+# Oracle (per-point) cuts: the stream length only, never a width.
+ORACLE_QUERIES, ORACLE_TOPK_QUERIES = 1024, 256
+ORACLE_SANN_POINTS, ORACLE_KDE_POINTS, ORACLE_KDE_QUERIES = 16_384, 8192, 256
+MERGE_PREFIX = 131_072
+BATCH_KDE_BATCHES, BATCH_KDE_WINDOW = 64, 16
+RTOL, ATOL = 1e-5, 1e-6          # fp32 summation order (scorers)
+SRP_FLIP_TOL = 1e-5              # |y| <= tol * |x| * |proj column| may flip
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 
 # file:line of the TPU kernel each CUDA kernel replaces
 REPLACES = {
+    "srp_hash": "src/repro/kernels/srp_hash.py:38",
     "race_hist": "src/repro/kernels/race_update.py:41",
-    "sann_table_scatter": "src/repro/kernels/ingest_commit.py:135",
+    "cand_score": "src/repro/kernels/cand_score.py:27",
     "batch_score_topk": "src/repro/kernels/batch_score.py:73",
     "swakde_segment_pass": "src/repro/kernels/ingest_commit.py:57",
+    "sann_table_scatter": "src/repro/kernels/ingest_commit.py:135",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
@@ -124,7 +146,9 @@ def time_ms(fn, iters: int, device, warmup: int = 2) -> float:
 KERNEL_SYMBOLS = {"race_hist": "race_hist_smem",
                   "sann_table_scatter": "sann_table_scatter_kernel",
                   "batch_score_topk": "batch_score_topk_kernel",
-                  "swakde_segment_pass": "swakde_segment_pass_kernel"}
+                  "swakde_segment_pass": "swakde_segment_pass_kernel",
+                  "cand_score": "cand_score_kernel",
+                  "srp_hash": "srp_hash_kernel"}
 
 
 def _device_us(evt) -> float:
@@ -227,10 +251,11 @@ def exact_topk_ids(data, queries, k, block=256):
 def phase_sann(seed, device, n=SANN_N, n_queries=SANN_QUERIES):
     import torch
     from repro_torch import convert
-    from repro_torch.core import lsh, sann
+    from repro_torch.core import lsh, prng, sann
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=device).manual_seed(seed)
+    key = prng.PRNGKey(seed, device)
     data = sift_like(n, gen, device)
     idx = torch.randperm(n, generator=gen, device=device)[:n_queries]
     queries = data[idx] + 0.01 * torch.randn((n_queries, SANN_DIM),
@@ -244,7 +269,7 @@ def phase_sann(seed, device, n=SANN_N, n_queries=SANN_QUERIES):
     ops.reset_launches()
     t0 = time.perf_counter()
     cfg, params, state = sann.sann_init(cfg, gen, device=device)
-    state = sann.sann_insert_chunked(state, params, data, gen, cfg,
+    state = sann.sann_insert_chunked(state, params, data, key, cfg,
                                      chunk=CHUNK)
     sync(device)
     t_ingest = time.perf_counter() - t0
@@ -304,28 +329,36 @@ def phase_sann(seed, device, n=SANN_N, n_queries=SANN_QUERIES):
                        ("sann_table_scatter", "batch_score_topk")},
           "stream_cut": None})
 
-    # --- cross-check: the first chunks re-run on the CPU, same keep/codes ---
-    g2 = torch.Generator(device=device).manual_seed(seed + 1)
+    # --- cross-check: the first chunks re-run on the CPU with the same codes;
+    # each side draws its keep mask from the same key on its own device ---
     params_cpu = convert.params_from_numpy(convert.to_numpy(params), "cpu")
+    ckeys = prng.split(prng.PRNGKey(seed + 1, device), CROSS_CHUNKS)
     st_dev = sann.sann_empty_state(cfg, device)
     st_cpu = sann.sann_empty_state(cfg, "cpu")
+    keep_equal = True
     for i in range(CROSS_CHUNKS):
         x = data[i * CHUNK:(i + 1) * CHUNK]
-        prep = sann.sann_prepare_chunk(params, x, g2, cfg)
+        prep = sann.sann_prepare_chunk(params, x, ckeys[i], cfg)
         st_dev = sann.sann_commit_chunk(st_dev, prep, cfg)
+        keep_cpu = prng.bernoulli(
+            sann.sann_row_keys(ckeys[i].cpu(), x.shape[0]), cfg.keep_prob)
+        keep_equal &= torch.equal(keep_cpu, prep.keep.cpu())
         codes = lsh.hash_points(params, x)
         prep_cpu = sann.sann_prepare_given_keep(
-            params_cpu, x.cpu(), prep.keep.cpu(), cfg, codes=codes.cpu())
+            params_cpu, x.cpu(), keep_cpu, cfg, codes=codes.cpu())
         st_cpu = sann.sann_commit_chunk(st_cpu, prep_cpu, cfg)
     bad = differing_leaves(st_dev, st_cpu)
     emit({"phase": "sann_cross_check", "chunks": CROSS_CHUNKS,
-          "n_stored": int(st_cpu.n_stored), "bit_identical": not bad,
-          "differing": bad})
+          "n_stored": int(st_cpu.n_stored), "keep_masks_equal": keep_equal,
+          "bit_identical": not bad, "differing": bad})
+    if not keep_equal:
+        fail("S-ANN keep masks drawn on the card and on the CPU differ")
     if bad:
         fail(f"S-ANN device/CPU state differs in {bad}")
     del st_dev, st_cpu
     return dict(cfg=cfg, params=params, state=state, queries=queries,
-                data=data, gen=gen, launches=launches)
+                data=data, gen=gen, key=key, launches=launches,
+                results=results, topk=topk, r=r, c=c)
 
 
 # --------------------------------------------------------------------------
@@ -436,8 +469,377 @@ def phase_kde(seed, device, n=KDE_N, n_queries=KDE_QUERIES, window=65_536):
     if bad:
         fail(f"SW-AKDE/RACE device/CPU state differs in {bad}")
     return dict(cfg=cfg, params=params, state=sw, data=data, gen=gen,
-                launches=launches)
+                queries=queries, launches=launches)
 
+
+
+# --------------------------------------------------------------------------
+# phase 3b: SW-AKDE + RACE with SRP params (the srp_hash kernel) + cross-check
+# --------------------------------------------------------------------------
+
+def exact_srp_kde(points, queries, p, block=131_072):
+    """sum_x k^p(x, q) over ``points`` with the SRP collision kernel
+    (1 - theta/pi)^p, from cosines of normalised vectors (float64)."""
+    import torch
+    qn = queries.double() / queries.double().norm(dim=1, keepdim=True)
+    total = torch.zeros(queries.shape[0], dtype=torch.float64,
+                        device=queries.device)
+    for i in range(0, points.shape[0], block):
+        x = points[i:i + block].double()
+        cos = (qn @ (x / x.norm(dim=1, keepdim=True)).T).clamp(-1.0, 1.0)
+        total += ((1.0 - torch.arccos(cos) / math.pi) ** p).sum(-1)
+    return total
+
+
+def srp_flips(x, params, got, want):
+    """Count the codes where the kernel and the plain version differ, and
+    fail unless every one has a projection with |y| (float64 product) <=
+    SRP_FLIP_TOL * |x| * |proj column| (a sign within rounding of 0)."""
+    from repro_torch.kernels import ref
+    flips, unexplained = ref.srp_code_flips(x, params.proj, params.mix, got,
+                                            want, SRP_FLIP_TOL)
+    if unexplained:
+        fail(f"srp_hash: {unexplained} codes differ from the plain version "
+             f"away from a sign boundary")
+    return flips
+
+
+def phase_srp_kde(seed, kde_run, device, n=KDE_N, n_queries=KDE_QUERIES,
+                  window=65_536):
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import lsh, race, swakde
+    from repro_torch.kernels import ops
+
+    L = W = 96
+    kp = 2
+    data, queries = kde_run["data"][:n], kde_run["queries"][:n_queries]
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    params = lsh.init_srp(gen, KDE_DIM, L, kp, W, device=device)
+    cfg = swakde.SWAKDEConfig(L=L, W=W, window=window, eh_eps=0.1)
+
+    sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sw = swakde.swakde_stream_batched(swakde.swakde_init(cfg, device), params,
+                                      data, cfg, chunk=CHUNK)
+    sync(device)
+    t_sw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = race.race_init(L, W, device)
+    for i in range(0, n, CHUNK):
+        rc = race.race_update_batch(rc, params, data[i:i + CHUNK])
+    sync(device)
+    t_rc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est_sw = torch.cat([swakde.swakde_query_batch(
+        sw, params, queries[i:i + QUERY_BLOCK], cfg)
+        for i in range(0, n_queries, QUERY_BLOCK)])
+    sync(device)
+    t_swq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est_rc = torch.cat([race.race_query_batch(
+        rc, params, queries[i:i + QUERY_BLOCK])
+        for i in range(0, n_queries, QUERY_BLOCK)])
+    sync(device)
+    t_rcq = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    n_chunks = math.ceil(n / CHUNK)
+    n_blocks = math.ceil(n_queries / QUERY_BLOCK)
+    if launches["srp_hash"] != 2 * n_chunks + 2 * n_blocks:
+        fail(f"srp_hash launches {launches['srp_hash']}: expected one per "
+             f"chunk and query block of each sketch")
+    for est in (est_sw, est_rc):
+        if est.shape != (n_queries,) or not torch.isfinite(est).all():
+            fail("SRP KDE estimates must be finite, one per query")
+    if int(rc.n) != n or int(rc.counts.sum()) != n * L or int(sw.t) != n:
+        fail("SRP stream counters")
+    q48 = queries[:KDE_ERR_QUERIES]
+    sw48 = swakde.swakde_query_batch(sw, params, q48, cfg).double()
+    rc48 = race.race_query_batch(rc, params, q48).double()
+    ex_win = exact_srp_kde(data[-window:], q48, kp)
+    ex_all = exact_srp_kde(data, q48, kp)
+    err_sw = float((torch.abs(sw48 - ex_win) / ex_win.clamp(min=1e-6)).mean())
+    err_rc = float((torch.abs(rc48 - ex_all) / ex_all.clamp(min=1e-6)).mean())
+    emit({"phase": "srp_kde", "points": n, "queries": n_queries,
+          "dim": KDE_DIM, "L": L, "W": W, "window": window, "hash_k": kp,
+          "swakde_ingest_s": t_sw, "swakde_points_per_s": n / t_sw,
+          "race_ingest_s": t_rc, "race_points_per_s": n / t_rc,
+          "swakde_query_s": t_swq, "swakde_queries_per_s": n_queries / t_swq,
+          "race_query_s": t_rcq, "race_queries_per_s": n_queries / t_rcq,
+          "mean_rel_err_swakde_window": err_sw, "mean_rel_err_race": err_rc,
+          "launches": {k: launches[k] for k in
+                       ("srp_hash", "race_hist", "swakde_segment_pass")},
+          "stream_cut": None})
+
+    # --- cross-check: 8 chunks on the CPU from the kernel's codes; the plain
+    # version's own codes may differ only at sign boundaries ---
+    params_cpu = convert.params_from_numpy(convert.to_numpy(params), "cpu")
+    sw_dev, sw_cpu = swakde.swakde_init(cfg, device), swakde.swakde_init(cfg, "cpu")
+    rc_dev, rc_cpu = race.race_init(L, W, device), race.race_init(L, W, "cpu")
+    flips = 0
+    for i in range(CROSS_CHUNKS):
+        x = data[i * CHUNK:(i + 1) * CHUNK]
+        codes = lsh.hash_points(params, x)
+        flips += srp_flips(x.cpu(), params_cpu, codes,
+                           lsh.hash_points(params_cpu, x.cpu()))
+        sw_dev = swakde.swakde_commit_chunk(
+            sw_dev, swakde.swakde_prepare_from_codes(codes, cfg), cfg)
+        sw_cpu = swakde.swakde_commit_chunk(
+            sw_cpu, swakde.swakde_prepare_from_codes(codes.cpu(), cfg), cfg)
+        rc_dev = race.race_commit_chunk(
+            rc_dev, race.RACEPrep(ops.race_hist(codes, W), CHUNK))
+        rc_cpu = race.race_commit_chunk(
+            rc_cpu, race.RACEPrep(ops.race_hist(codes.cpu(), W), CHUNK))
+    bad = differing_leaves(sw_dev, sw_cpu) + [
+        f"race.{f}" for f in differing_leaves(rc_dev, rc_cpu)]
+    emit({"phase": "srp_kde_cross_check", "chunks": CROSS_CHUNKS,
+          "srp_codes": CROSS_CHUNKS * CHUNK * L,
+          "srp_flips_at_sign_boundaries": flips,
+          "bit_identical": not bad, "differing": bad})
+    if bad:
+        fail(f"SRP SW-AKDE/RACE device/CPU state differs in {bad}")
+    return dict(cfg=cfg, params=params, params_cpu=params_cpu, state=sw,
+                race=rc, data=data, queries=queries, launches=launches)
+
+
+# --------------------------------------------------------------------------
+# phase 3c: the per-point oracles (Alg. 1 and Alg. 2 one at a time)
+# --------------------------------------------------------------------------
+
+def exact_d2(points, q, ids):
+    """float64 squared distances of ``q`` to ``points[ids]`` (inf at -1)."""
+    import torch
+    d = ((points[ids.clamp(min=0).long()].double() - q.double()) ** 2).sum(-1)
+    return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
+
+
+def near_tie(a, b):
+    import torch
+    return (a == b) | ((a - b).abs() <= ATOL + RTOL * b.abs())
+
+
+def phase_sann_oracles(sann_run, device):
+    """`sann_query` / `sann_query_topk` against the batch engine's answers
+    from phase `sann`; `sann_insert_stream` against `sann_insert_batch`."""
+    import torch
+    from repro_torch.core import prng, sann
+    from repro_torch.kernels import ops
+    cfg, params, state = sann_run["cfg"], sann_run["params"], sann_run["state"]
+    qs = sann_run["queries"]
+    cr = sann_run["c"] * sann_run["r"]
+
+    sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = [sann.sann_query(state, params, q, cfg) for q in qs[:ORACLE_QUERIES]]
+    sync(device)
+    t_q = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tk = [sann.sann_query_topk(state, params, q, cfg, TOPK)
+          for q in qs[:ORACLE_TOPK_QUERIES]]
+    sync(device)
+    t_tk = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["cand_score"] != ORACLE_QUERIES + ORACLE_TOPK_QUERIES:
+        fail(f"cand_score launches {launches['cand_score']}: expected one "
+             f"per oracle query")
+
+    batch = sann_run["results"][0]
+    n = ORACLE_QUERIES
+    index = torch.stack([r.index for r in res])
+    dist = torch.stack([r.distance for r in res])
+    found = torch.stack([r.found for r in res])
+    ncand = torch.stack([r.n_candidates for r in res])
+    b_found, b_dist, b_index = batch.found[:n], batch.distance[:n], batch.index[:n]
+    edge = (b_dist - cr).abs() <= 1e-5 * cr
+    if bool(((found != b_found) & ~edge).any()):
+        fail("sann_query found differs from the batch engine away from c*r")
+    both = found & b_found
+    if not torch.allclose(dist[both], b_dist[both], rtol=RTOL, atol=0):
+        fail("sann_query distances differ from the batch engine")
+    mism = both & (index != b_index)
+    for i in torch.nonzero(mism).flatten().tolist():
+        a = exact_d2(state.points, qs[i], index[i:i + 1])
+        b = exact_d2(state.points, qs[i], b_index[i:i + 1])
+        if not bool(near_tie(a, b).all()):
+            fail(f"sann_query id differs from the batch engine at query {i} "
+                 f"without a near-tie")
+    if not torch.equal(ncand, batch.n_candidates[:n]):
+        fail("sann_query candidate counts differ from the batch engine")
+
+    ids = torch.stack([t[0] for t in tk])
+    dists = torch.stack([t[1] for t in tk])
+    b_ids = sann_run["topk"][0][0][:ORACLE_TOPK_QUERIES]
+    b_dists = sann_run["topk"][0][1][:ORACLE_TOPK_QUERIES]
+    if not torch.equal(torch.isinf(dists), torch.isinf(b_dists)):
+        fail("sann_query_topk padding differs from the batch engine")
+    fin = torch.isfinite(b_dists)
+    if not torch.allclose(dists[fin], b_dists[fin], rtol=RTOL, atol=ATOL):
+        fail("sann_query_topk distances differ from the batch engine")
+    tk_mism = ids != b_ids
+    for i, j in torch.nonzero(tk_mism).tolist():
+        a = exact_d2(state.points, qs[i], ids[i, j:j + 1])
+        b = exact_d2(state.points, qs[i], b_ids[i, j:j + 1])
+        if not bool(near_tie(a, b).all()):
+            fail(f"sann_query_topk id differs at ({i}, {j}) without a near-tie")
+
+    # sann_insert_stream over a stream prefix from a fresh sketch
+    xs = sann_run["data"][:ORACLE_SANN_POINTS]
+    key = prng.PRNGKey(7, device)
+    t0 = time.perf_counter()
+    st_stream = sann.sann_insert_stream(sann.sann_empty_state(cfg, device),
+                                        params, xs, key, cfg)
+    sync(device)
+    t_stream = time.perf_counter() - t0
+    st_batch = sann.sann_insert_batch(sann.sann_empty_state(cfg, device),
+                                      params, xs, key, cfg)
+    bad = differing_leaves(st_stream, st_batch)
+    emit({"phase": "sann_oracles", "queries": ORACLE_QUERIES,
+          "topk_queries": ORACLE_TOPK_QUERIES,
+          "query_s": t_q, "queries_per_s": ORACLE_QUERIES / t_q,
+          "topk_s": t_tk, "topk_queries_per_s": ORACLE_TOPK_QUERIES / t_tk,
+          "found_rate": float(found.float().mean()),
+          "found_differs_at_c_r_edge": int((found != b_found).sum()),
+          "id_mismatches_at_near_ties": int(mism.sum()),
+          "topk_id_mismatches_at_near_ties": int(tk_mism.sum()),
+          "stream_points": ORACLE_SANN_POINTS, "stream_s": t_stream,
+          "stream_points_per_s": ORACLE_SANN_POINTS / t_stream,
+          "stream_n_stored": int(st_stream.n_stored),
+          "stream_equals_batch": not bad, "differing": bad,
+          "launches": {"cand_score": launches["cand_score"]},
+          "stream_cut": {"queries": [ORACLE_QUERIES, SANN_QUERIES],
+                         "topk_queries": [ORACLE_TOPK_QUERIES, SANN_QUERIES],
+                         "stream_points": [ORACLE_SANN_POINTS, SANN_N]}})
+    if bad:
+        fail(f"sann_insert_stream differs from sann_insert_batch in {bad}")
+    return launches
+
+
+def phase_kde_oracles(srp_run, device):
+    """Per-point SW-AKDE / RACE against the chunked paths, per-query KDE
+    against the batch paths, swakde_merge and BatchSWAKDE against the CPU."""
+    import torch
+    from repro_torch.core import eh, lsh, race, swakde
+    from repro_torch.kernels import ops
+    cfg, params, data = srp_run["cfg"], srp_run["params"], srp_run["data"]
+    L, W = cfg.L, cfg.W
+
+    xs = data[:ORACLE_KDE_POINTS]
+    sync(device)
+    t0 = time.perf_counter()
+    sw_pt = swakde.swakde_stream(swakde.swakde_init(cfg, device), params, xs, cfg)
+    sync(device)
+    t_sw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_pt = race.race_init(L, W, device)
+    for x in xs:
+        rc_pt = race.race_update(rc_pt, params, x)
+    sync(device)
+    t_rc = time.perf_counter() - t0
+    sw_ch = swakde.swakde_init(cfg, device)
+    rc_ch = race.race_init(L, W, device)
+    for i in range(0, ORACLE_KDE_POINTS, CHUNK):
+        sw_ch = swakde.swakde_update_chunk(sw_ch, params, xs[i:i + CHUNK], cfg)
+        rc_ch = race.race_update_batch(rc_ch, params, xs[i:i + CHUNK])
+    bad = differing_leaves(sw_pt, sw_ch) + [
+        f"race.{f}" for f in differing_leaves(rc_pt, rc_ch)]
+    if bad:
+        fail(f"per-point SW-AKDE/RACE differ from the chunked paths in {bad}")
+
+    # per-query estimates on the full SRP states against the batch paths
+    sw, rc = srp_run["state"], srp_run["race"]
+    qs = srp_run["queries"][:ORACLE_KDE_QUERIES]
+    t0 = time.perf_counter()
+    q_sw = torch.stack([swakde.swakde_query(sw, params, q, cfg) for q in qs])
+    q_swk = torch.stack([swakde.swakde_kde(sw, params, q, cfg) for q in qs])
+    q_rc = torch.stack([race.race_query(rc, params, q) for q in qs])
+    q_rck = torch.stack([race.race_kde(rc, params, q) for q in qs])
+    sync(device)
+    t_q = time.perf_counter() - t0
+    b_sw = swakde.swakde_query_batch(sw, params, qs, cfg)
+    b_rc = race.race_query_batch(rc, params, qs)
+    denom = torch.clamp(torch.clamp(sw.t, max=cfg.window).float(), min=1.0)
+    checks = {"swakde_query": torch.equal(q_sw, b_sw),
+              "swakde_kde": torch.equal(q_swk, b_sw / denom),
+              "race_query": torch.equal(q_rc, b_rc),
+              "race_kde": torch.equal(q_rck, b_rc / torch.clamp(rc.n.float(), min=1.0))}
+    if not all(checks.values()):
+        fail(f"per-query KDE differs from the batch path: {checks}")
+
+    # swakde_merge over interleaved halves of a stream prefix
+    pre = data[:MERGE_PREFIX]
+    a = swakde.swakde_stream_batched(swakde.swakde_init(cfg, device), params,
+                                     pre[0::2].contiguous(), cfg, chunk=CHUNK)
+    b = swakde.swakde_stream_batched(swakde.swakde_init(cfg, device), params,
+                                     pre[1::2].contiguous(), cfg, chunk=CHUNK)
+    sync(device)
+    t0 = time.perf_counter()
+    m_ab = swakde.swakde_merge(a, b, cfg)
+    sync(device)
+    t_merge = time.perf_counter() - t0
+    m_ba = swakde.swakde_merge(b, a, cfg)
+    to_cpu = lambda st: type(st)(*(v.cpu() for v in st))
+    m_cpu = swakde.swakde_merge(to_cpu(a), to_cpu(b), cfg)
+    bad = [f"ab/ba.{f}" for f in differing_leaves(m_ab, m_ba)] + \
+        [f"dev/cpu.{f}" for f in differing_leaves(m_ab, m_cpu)]
+    if bad:
+        fail(f"swakde_merge: {bad}")
+    q48 = qs[:KDE_ERR_QUERIES]
+    merged_vs_parts = float((swakde.swakde_query_batch(m_ab, params, q48, cfg)
+                             - swakde.swakde_query_batch(a, params, q48, cfg)
+                             - swakde.swakde_query_batch(b, params, q48, cfg)
+                             ).abs().mean())
+
+    # BatchSWAKDE (Corollary 4.2): device vs the CPU plain path, same codes
+    bcfg = swakde.BatchSWAKDEConfig(L=L, W=W, window=BATCH_KDE_WINDOW,
+                                    eh_eps=0.1, batch_size=CHUNK)
+    seh = bcfg.eh_config()
+    bst = swakde.batch_swakde_init(bcfg, device)
+    cst = swakde.batch_swakde_init(bcfg, "cpu")
+    t_batch = 0.0
+    for i in range(BATCH_KDE_BATCHES):
+        batch = data[i * CHUNK:(i + 1) * CHUNK]
+        sync(device)
+        t0 = time.perf_counter()
+        bst = swakde.batch_swakde_update(bst, params, batch, bcfg)
+        sync(device)
+        t_batch += time.perf_counter() - t0
+        codes = lsh.hash_points(params, batch).cpu()
+        s = eh.sum_eh_add(eh.SumEHState(cst.ts, cst.num), cst.t,
+                          ops.race_hist(codes, W), seh)
+        cst = swakde.BatchSWAKDEState(s.ts, s.num, cst.t + 1)
+    bad = differing_leaves(bst, cst)
+    if bad:
+        fail(f"BatchSWAKDE device/CPU state differs in {bad}")
+    bq = torch.stack([swakde.batch_swakde_query(bst, params, q, bcfg)
+                      for q in q48])
+    if not torch.isfinite(bq).all() or not bool((bq > 0).all()):
+        fail("BatchSWAKDE estimates must be finite and positive")
+
+    emit({"phase": "kde_oracles", "dim": KDE_DIM, "L": L, "W": W,
+          "stream_points": ORACLE_KDE_POINTS,
+          "swakde_stream_s": t_sw,
+          "swakde_stream_points_per_s": ORACLE_KDE_POINTS / t_sw,
+          "race_update_s": t_rc,
+          "race_update_points_per_s": ORACLE_KDE_POINTS / t_rc,
+          "per_point_equals_chunked": True,
+          "per_query_queries": ORACLE_KDE_QUERIES,
+          "per_query_s_all_four": t_q, "per_query_equal_batch": checks,
+          "merge_prefix": MERGE_PREFIX, "merge_s": t_merge,
+          "merge_commutative_and_equals_cpu": True,
+          "merge_mean_abs_gap_vs_sum_of_parts": merged_vs_parts,
+          "batch_swakde_batches": BATCH_KDE_BATCHES,
+          "batch_swakde_window": BATCH_KDE_WINDOW,
+          "batch_swakde_eh_levels": seh.base.levels,
+          "batch_swakde_update_ms": t_batch / BATCH_KDE_BATCHES * 1e3,
+          "batch_swakde_equals_cpu": True,
+          "batch_swakde_mean_estimate_48": float(bq.mean()),
+          "stream_cut": {"stream_points": [ORACLE_KDE_POINTS, KDE_N],
+                         "queries": [ORACLE_KDE_QUERIES, KDE_QUERIES],
+                         "merge_prefix": [MERGE_PREFIX, KDE_N],
+                         "batch_swakde_points": [BATCH_KDE_BATCHES * CHUNK, KDE_N]}})
 
 # --------------------------------------------------------------------------
 # phase 4: every kernel against its plain version, timed
@@ -474,7 +876,7 @@ def check_sann_table_scatter(sann_run, device):
     from repro_torch.kernels import ingest_commit, ref
     cfg, params, state = sann_run["cfg"], sann_run["params"], sann_run["state"]
     prep = sann.sann_prepare_chunk(params, sann_run["queries"][:CHUNK],
-                                   sann_run["gen"], cfg)
+                                   sann_run["key"], cfg)
     slot = (state.write_ptr + prep.kept_rank) % cfg.capacity
     s_b = prep.s_b.long()
     val = torch.where(prep.winner[s_b], slot[s_b], -1).to(torch.int32)
@@ -588,11 +990,13 @@ def check_swakde_segment_pass(kde, device):
     kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
               n_levels=eh.levels, cap=cfg.heavy_cell_cap)
     first = carry
-    passes = 0
+    passes = err = 0
     while bool((carry[2] < prep.seg_len).any()):
         got = ingest_commit.swakde_segment_pass(*carry, *fixed, **kw)
         want = ref.swakde_segment_pass_ref(*carry, *fixed, **kw)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        err = max([err] + [int((a.long() - b.long()).abs().max())
+                           for a, b in zip(got, want)])
+        if err:
             fail(f"swakde_segment_pass differs from its plain version "
                  f"at pass {passes}")
         carry = got
@@ -604,7 +1008,7 @@ def check_swakde_segment_pass(kde, device):
     ring = R * G * LV * S * 4 + R * G * LV * 4
     b_ms, b_by = bound(2 * ring + 4 * R * G * 4 + (consumed + active) * 4)
     return {"name": "swakde_segment_pass", "shape": [R, G, LV, S, sorted_ts.shape[1]],
-            "passes_to_drain": passes, "max_abs_err": 0,
+            "passes_to_drain": passes, "max_abs_err": err,
             "ms": time_ms(lambda: ingest_commit.swakde_segment_pass(
                 *first, *fixed, **kw), 50, device),
             "device_ms": device_ms(lambda: ingest_commit.swakde_segment_pass(
@@ -614,14 +1018,77 @@ def check_swakde_segment_pass(kde, device):
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_cand_score(sann_run, device):
+    """`cand_score` at the oracles' two shapes, on a real query's
+    candidates: the first 3L valid ones (M = 36) and the bucket union
+    (M = L * bucket_cap = 384)."""
+    import torch
+    from repro_torch.core import sann
+    from repro_torch.kernels import cand_score, ref
+    cfg, params, state = sann_run["cfg"], sann_run["params"], sann_run["state"]
+    q = sann_run["queries"][0].contiguous()
+    cand, ok = sann.sann_bucket_candidates(state, params, q, cfg)
+    sel = torch.sort((~ok).to(torch.int32), stable=True).indices[:3 * cfg.L]
+    rows = []
+    for c in (cand[sel], cand):
+        vecs = state.points[c.clamp(min=0).long()].contiguous()
+        M, d = vecs.shape
+        got = cand_score.cand_score(q, vecs)
+        want = ref.cand_score_ref(q, vecs)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail("cand_score differs from its plain version")
+        b_ms, b_by = bound(M * d * 4 + d * 4 + M * 4, 3.0 * M * d)
+        rows.append({
+            "name": "cand_score", "shape": [M, d], "max_abs_err": err,
+            "ms": time_ms(lambda: cand_score.cand_score(q, vecs), 200, device),
+            "device_ms": device_ms(lambda: cand_score.cand_score(q, vecs),
+                                   "cand_score", device),
+            "plain_ms": time_ms(lambda: ref.cand_score_ref(q, vecs), 200, device),
+            "library_ms": None, "library": "none (no single call)",
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def check_srp_hash(srp_run, device):
+    """`srp_hash` on one ingest chunk of the SRP stream, (4096, 384) x
+    (384, 192): codes against the plain version under the flip rule."""
+    import torch
+    from repro_torch.kernels import ref, srp_hash
+    params = srp_run["params"]
+    x = srp_run["data"][:CHUNK].contiguous()
+    proj, mix, nb = params.proj, params.mix, params.n_buckets
+    got = srp_hash.srp_hash(x, proj, mix, nb)
+    want = ref.srp_hash_ref(x, proj, mix, nb)
+    flips = srp_flips(x, params, got, want)
+    # a flipped sign bit moves the code anywhere in [0, n_buckets)
+    err = int((got.long() - want.long()).abs().max())
+    B, d = x.shape
+    LK = proj.shape[1]
+    b_ms, b_by = bound(B * d * 4 + d * LK * 4 + mix.numel() * 8 + B * params.L * 4,
+                       2.0 * B * d * LK)
+    return {"name": "srp_hash", "shape": [B, d, LK], "max_abs_err": err,
+            "flips_at_sign_boundaries": flips, "codes": B * params.L,
+            "ms": time_ms(lambda: srp_hash.srp_hash(x, proj, mix, nb), 100, device),
+            "device_ms": device_ms(lambda: srp_hash.srp_hash(x, proj, mix, nb),
+                                   "srp_hash", device),
+            "plain_ms": time_ms(lambda: ref.srp_hash_ref(x, proj, mix, nb), 50,
+                                device),
+            "library_ms": None, "library": "none (no single call)",
+            "matmul_only_ms": time_ms(lambda: x @ proj, 100, device),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 # --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler over short main-path windows)
 # --------------------------------------------------------------------------
 
 def profile_window(name, fn, device, top=10):
     """Profile ``fn()`` once (after one warm-up call): wall time, the summed
-    device time of all kernels and copies, the device's busy share, and the
-    device ops (kernels by symbol) with the most time."""
+    device time of all kernels and copies, the device's busy share, the
+    number of device ops launched, the host's waits on the device and its
+    copies to the device, and the device ops (kernels by symbol) with the
+    most time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(device)
@@ -632,19 +1099,26 @@ def profile_window(name, fn, device, top=10):
         wall_us = (time.perf_counter() - t0) * 1e6
     # _device_us counts device-side events only (kernels, copies, fills): a
     # CPU op's own device time would count its kernels twice
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    events = prof.key_averages()
+    rows = [(e.key, _device_us(e), e.count) for e in events]
     rows = [r for r in rows if r[1] > 0]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    # the window's closing synchronize is one of the host waits
+    waits = sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"))
     emit({"phase": "profile", "window": name, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3,
           "device_busy_share": busy_us / wall_us if wall_us else None,
+          "device_ops": sum(r[2] for r in rows),
+          "host_waits": waits,
+          "copies_to_device": sum(r[2] for r in rows if "HtoD" in r[0]),
           "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": c}
                              for k, us, c in rows[:top]]})
 
 
-def phase_profile(sann_run, kde_run, device, n_chunks=4):
-    from repro_torch.core import race, sann, swakde
+def phase_profile(sann_run, kde_run, srp_run, device, n_chunks=4):
+    from repro_torch.core import prng, race, sann, swakde
     s, k = sann_run, kde_run
     qs = s["queries"][:QUERY_BLOCK]
     kq = k["data"][:QUERY_BLOCK]
@@ -654,7 +1128,7 @@ def phase_profile(sann_run, kde_run, device, n_chunks=4):
         for i in range(n_chunks):
             st = sann.sann_insert_batch(st, s["params"],
                                         s["data"][i * CHUNK:(i + 1) * CHUNK],
-                                        s["gen"], s["cfg"])
+                                        s["key"], s["cfg"])
 
     def sann_queries():
         sann.sann_query_batch(s["state"], s["params"], qs, s["cfg"])
@@ -673,10 +1147,30 @@ def phase_profile(sann_run, kde_run, device, n_chunks=4):
         race.race_query_batch(race.race_init(k["cfg"].L, k["cfg"].W, device),
                               k["params"], kq)
 
+    def srp_ingest():
+        st = srp_run["state"]
+        for i in range(n_chunks):
+            x = srp_run["data"][i * CHUNK:(i + 1) * CHUNK]
+            st = swakde.swakde_update_chunk(st, srp_run["params"], x,
+                                            srp_run["cfg"])
+
+    def sann_keep_draws():
+        # the threefry keep draws of `sann_ingest`'s 4 chunks alone
+        for _ in range(n_chunks):
+            prng.bernoulli(sann.sann_row_keys(s["key"], CHUNK),
+                           s["cfg"].keep_prob)
+
+    def sann_oracle_queries():
+        for q in qs[:64]:
+            sann.sann_query(s["state"], s["params"], q, s["cfg"])
+
     for name, fn in (("sann_ingest_4_chunks", sann_ingest),
+                     ("sann_keep_draws_4_chunks", sann_keep_draws),
                      ("sann_query_block_2048", sann_queries),
                      ("swakde_race_ingest_4_chunks", kde_ingest),
-                     ("swakde_race_query_block_2048", kde_queries)):
+                     ("swakde_race_query_block_2048", kde_queries),
+                     ("srp_swakde_ingest_4_chunks", srp_ingest),
+                     ("sann_query_oracle_64", sann_oracle_queries)):
         profile_window(name, fn, device)
 
 
@@ -702,31 +1196,42 @@ def main(argv=None) -> int:
     phase_device()
     sann_run = phase_sann(args.seed, device)
     kde_run = phase_kde(args.seed, device)
+    srp_run = phase_srp_kde(args.seed, kde_run, device)
+    oracle_launches = phase_sann_oracles(sann_run, device)
+    phase_kde_oracles(srp_run, device)
     launches = {**{k: sann_run["launches"][k] for k in
                    ("sann_table_scatter", "batch_score_topk")},
                 **{k: kde_run["launches"][k] for k in
-                   ("race_hist", "swakde_segment_pass")}}
+                   ("race_hist", "swakde_segment_pass")},
+                "srp_hash": srp_run["launches"]["srp_hash"],
+                "cand_score": oracle_launches["cand_score"]}
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    rows = [check_race_hist(kde_run, device),
-            check_sann_table_scatter(sann_run, device),
+    rows = [check_srp_hash(srp_run, device),
+            check_race_hist(kde_run, device),
+            *check_cand_score(sann_run, device),
             *check_batch_score_topk(sann_run, device),
-            check_swakde_segment_pass(kde_run, device)]
+            check_swakde_segment_pass(kde_run, device),
+            check_sann_table_scatter(sann_run, device)]
     for row in rows:
         emit({"phase": "kernel_check", **row})
-    phase_profile(sann_run, kde_run, device)
+    phase_profile(sann_run, kde_run, srp_run, device)
     summary = []
     for row in rows:
         if row["name"] == "batch_score_topk" and row["shape"][-1] == 1:
             continue        # the (c, r) shape; reported in its kernel_check line
+        if row["name"] == "cand_score" and row["shape"][0] == 3 * sann_run["cfg"].L:
+            continue        # the 3L shape; reported in its kernel_check line
         summary.append({
             "name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "device_ms": row["device_ms"], "shape": row["shape"]})
+            "device_ms": row["device_ms"], "shape": row["shape"],
+            **{k: row[k] for k in ("flips_at_sign_boundaries", "codes")
+               if k in row}})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ reference package: a caller builds the dict from the reference object
 (``{f: np.asarray(getattr(p, f)) ...}``), and `*_from_numpy` places the
 values on ``device`` as the port's tensors.  `to_numpy` goes back.
 
-The reference's uint32 ``mix`` multipliers become int64 tensors holding the
-same values; every other leaf keeps its dtype (int32, float32, bool).
+The reference's uint32 ``mix`` multipliers and threefry keys become int64
+tensors holding the same values; every other leaf keeps its dtype (int32,
+float32, bool).
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .core.eh import EHState
+from .core.jl import JLState
 from .core.lsh import PStableParams, SRPParams
 from .core.race import RACEState
 from .core.sann import SANNState
-from .core.swakde import SWAKDEState
+from .core.swakde import BatchSWAKDEState, SWAKDEState
 from .core.util import resolve_device
 
 
@@ -57,6 +60,31 @@ def race_state_from_numpy(d: Mapping[str, Any], device="cuda") -> RACEState:
 
 def swakde_state_from_numpy(d: Mapping[str, Any], device="cuda") -> SWAKDEState:
     return _state(SWAKDEState, d, device)
+
+
+def eh_state_from_numpy(d: Mapping[str, Any], device="cuda") -> EHState:
+    """An ``EHState`` (or ``SumEHState``, the same layout)."""
+    return _state(EHState, d, device)
+
+
+def batch_swakde_state_from_numpy(d: Mapping[str, Any],
+                                  device="cuda") -> BatchSWAKDEState:
+    return _state(BatchSWAKDEState, d, device)
+
+
+def jl_state_from_numpy(d: Mapping[str, Any], device="cuda") -> JLState:
+    return _state(JLState, d, device)
+
+
+def key_from_numpy(key, device="cuda") -> torch.Tensor:
+    """A reference threefry key (uint32 ``(..., 2)``) → int64 tensor."""
+    device = resolve_device(device)
+    return _mix(key, device)
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """A port key → the reference's uint32 ``(..., 2)`` array."""
+    return key.detach().cpu().numpy().astype(np.uint32)
 
 
 def to_numpy(obj) -> dict:

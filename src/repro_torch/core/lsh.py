@@ -2,20 +2,22 @@
 
 The two families of the reference: SRP (angular) [Cha02] and p-stable
 Euclidean [DIIM04], each a concatenation of k hashes folded to
-``n_buckets`` by a multiply-shift universal hash.  Hashing is one fp32
-``torch.matmul`` plus elementwise ops, as the reference leaves it to XLA.
+``n_buckets`` by a multiply-shift universal hash.
 
 Numerics (kept equal to the reference):
 
 * the fold wraps mod 2^32 in the reference's uint32 arithmetic; here it
   runs in int64, split into 16-bit halves so no product overflows, and is
-  masked to 32 bits after every multiply and after the sum;
-* the p-stable code is ``floor((x @ proj + bias) / w)`` in that order (add
-  the bias, then divide), so a code flips only where the projection lies
-  within rounding of a boundary.  The division is an IEEE division on every
-  device (the reference divides when run eagerly; under ``jit`` XLA
-  multiplies by the reciprocal, at most one ulp away).  Matmuls must run in
-  full fp32: callers on the card keep
+  masked to 32 bits after every multiply and after the sum
+  (`kernels.ref.fold`);
+* SRP hashing is the `srp_hash` kernel on the card (projection, sign and
+  fold in one launch) and its plain version (one fp32 matmul) on the CPU;
+* the p-stable code is ``floor((x @ proj + bias) * (1/w))`` with ``1/w``
+  the fp32 reciprocal (`fp32_reciprocal`), one multiply on every device:
+  the reference writes ``/ w`` with ``w`` static, and under ``jit`` (how
+  its services and tests run it) XLA computes exactly that product.  A code can then differ from
+  the reference's only where the two frameworks' fp32 ``x @ proj`` sums
+  differ.  Matmuls must run in full fp32: callers on the card keep
   ``torch.backends.cuda.matmul.allow_tf32`` False.
 """
 from __future__ import annotations
@@ -25,11 +27,9 @@ from typing import NamedTuple
 
 import torch
 
-from .util import resolve_device, true_divide
-
-# Golden-ratio multiplicative constant for multiply-shift hashing.
-_MIX = 2654435761
-_MASK32 = 0xFFFFFFFF
+from .util import resolve_device
+from ..kernels import ops as kernel_ops
+from ..kernels.ref import fold
 
 
 class SRPParams(NamedTuple):
@@ -85,37 +85,26 @@ def init_pstable(generator: torch.Generator, dim: int, L: int, k: int,
                          n_buckets=n_buckets)
 
 
-def mul32(a: torch.Tensor, b) -> torch.Tensor:
-    """``(a * b) mod 2^32`` for int64 tensors holding values in [0, 2^32):
-    the low and high 16 bits of ``a`` are multiplied separately, so no
-    intermediate exceeds 2^49."""
-    lo = (a & 0xFFFF) * b
-    hi = ((a >> 16) * b) & 0xFFFF
-    return (lo + (hi << 16)) & _MASK32
-
-
-def fold(raw: torch.Tensor, mix: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Universal multiply-shift fold of ``(..., L, k)`` integer hashes →
-    ``(..., L)`` int32 buckets, bit-exact to the reference's uint32 wrap.
-
-    ``raw`` is any integer tensor; it is read as uint32 (two's complement,
-    as ``astype(uint32)`` does in the reference)."""
-    a = raw.to(torch.int64) & _MASK32
-    acc = mul32(a, mix).sum(dim=-1) & _MASK32
-    acc = mul32(acc, _MIX)
-    return (acc % n_buckets).to(torch.int32)
-
-
 def srp_hash(params: SRPParams, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., d) → bucket ids (..., L) in [0, n_buckets)."""
-    y = x @ params.proj                                  # (..., L*k)
-    bits = (y >= 0).reshape(*x.shape[:-1], params.L, params.k)
-    return fold(bits, params.mix, params.n_buckets)
+    """x: (..., d) → bucket ids (..., L) in [0, n_buckets), through
+    `kernels.ops.srp_hash` (the CUDA kernel for a CUDA tensor)."""
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
+    codes = kernel_ops.srp_hash(flat, params.proj, params.mix,
+                                params.n_buckets)
+    return codes.reshape(*x.shape[:-1], params.L)
+
+
+def fp32_reciprocal(w: float) -> float:
+    """``float32(1) / float32(w)``, as a Python float.  The value is exact in
+    fp32, so a float32 tensor times it is one fp32 multiply on every device,
+    and as a scalar operand it costs the card no host-to-device copy."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return float(one / torch.tensor(w, dtype=torch.float32))
 
 
 def pstable_hash(params: PStableParams, x: torch.Tensor) -> torch.Tensor:
     """x: (..., d) → bucket ids (..., L) via floor((a.x+b)/w), k per row."""
-    y = true_divide(x @ params.proj + params.bias, params.w)
+    y = (x @ params.proj + params.bias) * fp32_reciprocal(params.w)
     h = torch.floor(y).to(torch.int32)
     h = h.reshape(*x.shape[:-1], params.L, params.k)
     return fold(h, params.mix, params.n_buckets)

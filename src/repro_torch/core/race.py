@@ -5,8 +5,8 @@ independent LSH function h_i, so ``E[A[i, h_i(q)]] = sum_x k^p(x, q)``
 (Theorem 2.3).  Turnstile: deletions decrement counters.
 
 Ingest is two-phase (prepare: hash + histogram through the `race_hist`
-kernel; commit: one dense add).  Counters are bit-identical to the
-reference's ``core/race.py``.
+kernel; commit: one dense add); `race_update` is the per-point oracle.
+Counters are bit-identical to the reference's ``core/race.py``.
 """
 from __future__ import annotations
 
@@ -36,6 +36,18 @@ def race_merge(a: RACEState, b: RACEState) -> RACEState:
     """Combine two sketches built with identical params over different
     streams: counters sum exactly; ``n`` saturates."""
     return RACEState(counts=a.counts + b.counts, n=saturating_add(a.n, b.n))
+
+
+def race_update(state: RACEState, params, x: torch.Tensor,
+                sign: int = 1) -> RACEState:
+    """Insert (sign=+1) or delete (sign=-1) one point ``x (d,)``: one
+    counter per row moves by ``sign``.  Per-point oracle; `race_update_batch`
+    gives bit-identical counters."""
+    codes = lsh.hash_points(params, x).long()                # (L,)
+    rows = torch.arange(codes.shape[0], device=codes.device)
+    counts = state.counts.clone()
+    counts[rows, codes] += sign                              # rows distinct
+    return RACEState(counts=counts, n=saturating_add(state.n, sign))
 
 
 class RACEPrep(NamedTuple):
@@ -96,3 +108,20 @@ def race_query_batch(state: RACEState, params, qs: torch.Tensor,
     """Fused batch queries: ``qs (B, d) float32`` → (B,) float32."""
     return estimate_from_vals(race_row_reads(state, params, qs),
                               median_of_means)
+
+
+def race_query(state: RACEState, params, q: torch.Tensor,
+               median_of_means: int = 0) -> torch.Tensor:
+    """Unnormalised KDE estimate at ``q (d,)`` → () float32: one counter
+    read per row, reduced by `estimate_from_vals`."""
+    codes = lsh.hash_points(params, q).long()                # (L,)
+    rows = torch.arange(codes.shape[-1], device=codes.device)
+    return estimate_from_vals(state.counts[rows, codes].float(),
+                              median_of_means)
+
+
+def race_kde(state: RACEState, params, q: torch.Tensor,
+             median_of_means: int = 0) -> torch.Tensor:
+    """Normalised density estimate at ``q (d,)``: raw count / stream size."""
+    raw = race_query(state, params, q, median_of_means)
+    return raw / torch.clamp(state.n.float(), min=1.0)

@@ -5,24 +5,32 @@ point is kept with probability n^-eta, stored in a ring of ``capacity``
 slots, and appended to L p-stable hash tables whose buckets are rings of
 ``bucket_cap`` slot ids.  A query scores the union of its L buckets.
 
-Ingest is two-phase (DESIGN.md §10): `sann_prepare_chunk` is the pure half
-(keep decisions, prefix ranks, hashing, the sort-by-(row, code) append
-structure) and `sann_commit_chunk` rebases it on the live pointers, with
-the ring appends done by the `sann_table_scatter` kernel.  Queries run the
-fused batch engine (§9) with the `batch_score_topk` kernel.  Given the same
-keep decisions and codes, every integer leaf of the state is bit-identical
-to the reference's.
+Ingest paths:
 
-Random numbers: the reference draws each keep decision with threefry
-``fold_in(key, i)`` + ``bernoulli`` (a prefix-stable per-point schedule).
-The port draws ``torch.rand(B, generator=g) < keep_prob`` and does not try
-to reproduce JAX's bits; parity tests inject the reference's keep mask
-through `sann_prepare_given_keep`.  This draw depends on the chunk length,
-so the tenant fleets of a later slice will need a prefix-stable schedule of
-their own.
+* `sann_insert` / `sann_insert_stream` — the per-point oracle (Alg. 1
+  verbatim, one point per step, a Python loop in place of ``lax.scan``);
+* `sann_prepare_chunk` / `sann_commit_chunk` — the two-phase batched form
+  (DESIGN.md §10): prepare is the pure half (keep decisions, prefix ranks,
+  hashing, the sort-by-(row, code) append structure), commit rebases it on
+  the live pointers, with the ring appends done by the `sann_table_scatter`
+  kernel.  `sann_insert_batch` is their composition and is bit-identical
+  to `sann_insert_stream` under the same key.
+
+Query paths: `sann_query` / `sann_query_topk` score one query's candidates
+with the `cand_score` kernel (the oracles); `sann_query_batch` /
+`sann_query_topk_batch` are the fused batch engine (§9) on the
+`batch_score_topk` kernel, with results identical to the oracles.
+
+Random numbers: keep decisions come from threefry keys (`core.prng`),
+``bernoulli(fold_in(key, i), keep_prob)`` for the i-th point of a chunk,
+bit-identical to the reference's draws, so the same key stores the same
+points in both packages and the schedule is prefix-stable.  Parameters are
+drawn from a ``torch.Generator`` (`lsh.init_pstable`); parity tests carry
+the reference's parameters across instead.
 
 Commits never modify their input state: the tombstone pass makes a new
-tables tensor and the ring append writes into it in place.
+tables tensor and the ring append writes into it in place.  The per-point
+`sann_insert` likewise returns new tensors.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import lsh, theory
+from . import lsh, prng, theory
 from .util import resolve_device, saturating_add, set_drop
 from ..kernels import ops as kernel_ops
 
@@ -113,6 +121,72 @@ def sann_init(cfg: SANNConfig, generator: torch.Generator, device="cuda"):
     return cfg, params, sann_empty_state(cfg, device)
 
 
+def _insert_decided(state: SANNState, params, x: torch.Tensor, keep: bool,
+                    cfg: SANNConfig) -> SANNState:
+    """`sann_insert` with its keep decision already drawn (a host bool).
+    A point that is not kept only advances the stream clock; a kept point
+    recycles slot ``write_ptr``, and when that slot was live, every table
+    entry still pointing at it is tombstoned first (a host branch: the
+    whole-table pass runs only when a kept point evicts)."""
+    n_seen = saturating_add(state.n_seen, 1)
+    if not keep:
+        return state._replace(n_seen=n_seen)
+    slot = state.write_ptr % cfg.capacity                    # () int32
+    si = slot.long()
+    evict = bool(state.valid[si])
+    if evict:
+        tables = torch.where(state.tables == slot, -1, state.tables)
+    else:
+        tables = state.tables.clone()
+    points = state.points.clone()
+    points[si] = x
+    valid = state.valid.clone()
+    valid[si] = True
+    stamps = state.stamps.clone()
+    stamps[si] = state.n_seen
+    codes = lsh.hash_points(params, x).long()                # (L,)
+    rows = torch.arange(cfg.L, device=x.device)
+    ptr = state.table_ptr[rows, codes]
+    tables[rows, codes, (ptr % cfg.bucket_cap).long()] = slot
+    table_ptr = state.table_ptr.clone()
+    table_ptr[rows, codes] = ptr + 1                         # rows distinct
+    return SANNState(
+        points=points, valid=valid,
+        write_ptr=(state.write_ptr + 1) % cfg.capacity, n_seen=n_seen,
+        n_stored=(state.n_stored + (0 if evict else 1)).to(_I32),
+        tables=tables, table_ptr=table_ptr, stamps=stamps)
+
+
+def sann_insert(state: SANNState, params, x: torch.Tensor, key: torch.Tensor,
+                cfg: SANNConfig) -> SANNState:
+    """Sample-and-store one stream point ``x (d,)`` (Alg. 1 insert; Fig. 1):
+    kept with ``bernoulli(key, keep_prob)``.  One host sync for the draw."""
+    keep = bool(prng.bernoulli(key.to(x.device), cfg.keep_prob))
+    return _insert_decided(state, params, x, keep, cfg)
+
+
+def sann_row_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-point key schedule for a chunk: ``fold_in(key, i)`` for i < n →
+    ``(n, 2)`` keys.  Prefix-stable: ``sann_row_keys(key, m)[:b] ==
+    sann_row_keys(key, b)`` for b <= m."""
+    return prng.fold_in(key, torch.arange(n, dtype=torch.int64,
+                                          device=key.device))
+
+
+def sann_insert_stream(state: SANNState, params, xs: torch.Tensor,
+                       key: torch.Tensor, cfg: SANNConfig) -> SANNState:
+    """Per-point reference ingest of ``xs (T, d)``: point i is inserted under
+    key ``sann_row_keys(key, T)[i]``.  The T Bernoulli draws are made in one
+    vectorised pass (each is a function of its own key alone, so the bits
+    are those of a draw per step), then one `sann_insert` step per point.
+    `sann_insert_batch` is bit-identical under the same key."""
+    keys = sann_row_keys(key.to(xs.device), xs.shape[0])
+    keep = prng.bernoulli(keys, cfg.keep_prob).tolist()
+    for x, kp in zip(xs, keep):
+        state = _insert_decided(state, params, x, kp, cfg)
+    return state
+
+
 class SANNPrep(NamedTuple):
     """Pure per-chunk precomputation (the prepare phase): depends only on
     (params, chunk, keep decisions), never on sketch state."""
@@ -129,12 +203,12 @@ class SANNPrep(NamedTuple):
     counts: torch.Tensor      # (L, n_buckets) int32 — per-bucket append counts
 
 
-def sann_prepare_chunk(params, xs: torch.Tensor, generator: torch.Generator,
+def sann_prepare_chunk(params, xs: torch.Tensor, key: torch.Tensor,
                        cfg: SANNConfig) -> SANNPrep:
-    """Prepare ``xs (B, d)``: draw the keep decisions from ``generator``
-    (on its own device), then `sann_prepare_given_keep`."""
-    u = torch.rand(xs.shape[0], generator=generator, device=generator.device)
-    keep = (u < cfg.keep_prob).to(xs.device)
+    """Prepare ``xs (B, d)``: one Bernoulli draw per point from the
+    `sann_row_keys` schedule of ``key``, then `sann_prepare_given_keep`."""
+    keys = sann_row_keys(key.to(xs.device), xs.shape[0])
+    keep = prng.bernoulli(keys, cfg.keep_prob)
     return sann_prepare_given_keep(params, xs, keep, cfg)
 
 
@@ -245,20 +319,24 @@ def sann_commit_chunk(state: SANNState, prep: SANNPrep, cfg: SANNConfig,
 
 
 def sann_insert_batch(state: SANNState, params, xs: torch.Tensor,
-                      generator: torch.Generator, cfg: SANNConfig) -> SANNState:
-    """Batched ingest of a chunk ``xs (B, d)``: prepare then commit."""
+                      key: torch.Tensor, cfg: SANNConfig) -> SANNState:
+    """Batched ingest of a chunk ``xs (B, d)``: prepare then commit;
+    bit-identical to `sann_insert_stream` under the same key."""
     return sann_commit_chunk(
-        state, sann_prepare_chunk(params, xs, generator, cfg), cfg)
+        state, sann_prepare_chunk(params, xs, key, cfg), cfg)
 
 
 def sann_insert_chunked(state: SANNState, params, xs: torch.Tensor,
-                        generator: torch.Generator, cfg: SANNConfig,
+                        key: torch.Tensor, cfg: SANNConfig,
                         chunk: int = 1024) -> SANNState:
     """Stream ``xs (T, d)`` through `sann_insert_batch` in chunks of
-    ``chunk`` rows (the last one may be shorter)."""
-    for i in range(0, xs.shape[0], chunk):
-        state = sann_insert_batch(state, params, xs[i:i + chunk], generator,
-                                  cfg)
+    ``chunk`` rows (the last one may be shorter), chunk j under key
+    ``split(key, n_chunks)[j]`` as in the reference."""
+    n_chunks = -(-xs.shape[0] // chunk)
+    ckeys = prng.split(key.to(xs.device), max(n_chunks, 1))
+    for j in range(n_chunks):
+        state = sann_insert_batch(state, params,
+                                  xs[j * chunk:(j + 1) * chunk], ckeys[j], cfg)
     return state
 
 
@@ -304,6 +382,75 @@ class SANNResult(NamedTuple):
     distance: torch.Tensor   # distance to returned point (inf = NULL)
     found: torch.Tensor      # bool — success per the (c,r) contract
     n_candidates: torch.Tensor
+
+
+def sann_bucket_candidates(state: SANNState, params, q: torch.Tensor,
+                           cfg: SANNConfig):
+    """Gather the colliding buckets for ``q (d,)``: ``(cand (L*bucket_cap,)
+    int32, ok (L*bucket_cap,) bool)`` in row-major table order."""
+    codes = lsh.hash_points(params, q).long()                # (L,)
+    rows = torch.arange(cfg.L, device=q.device)
+    cand = state.tables[rows, codes].reshape(-1)
+    ok = (cand >= 0) & state.valid[cand.clamp(min=0).long()]
+    return cand, ok
+
+
+def _stable_argsort(v: torch.Tensor) -> torch.Tensor:
+    return torch.sort(v, stable=True).indices
+
+
+def sann_score_candidates(points: torch.Tensor, cand: torch.Tensor,
+                          ok: torch.Tensor, q: torch.Tensor, budget: int,
+                          cfg: SANNConfig) -> SANNResult:
+    """Truncate-and-score one query: keep the first ``budget`` valid
+    candidates (the paper's 3L early exit: a stable sort puts invalid
+    entries last), score them with the `cand_score` kernel, and return the
+    argmin (lowest index on ties) if within c*r (Fig. 2)."""
+    sel = _stable_argsort((~ok).to(torch.int32))[:budget]
+    cand, ok = cand[sel], ok[sel]
+    vecs = points[cand.clamp(min=0).long()]                  # (budget, d)
+    d2 = torch.where(ok, kernel_ops.cand_score(q, vecs), float("inf"))
+    best = _stable_argsort(d2)[0]
+    dist = torch.sqrt(d2[best])
+    found = dist <= cfg.c * cfg.r
+    return SANNResult(
+        index=torch.where(found, cand[best], -1),
+        distance=torch.where(found, dist, float("inf")),
+        found=found,
+        n_candidates=ok.sum().to(_I32),
+    )
+
+
+def sann_query(state: SANNState, params, q: torch.Tensor,
+               cfg: SANNConfig) -> SANNResult:
+    """Alg. 1 query for ``q (d,)``: gather L buckets, truncate to 3L
+    candidates, score, return the argmin if within c*r (Fig. 2); fields are
+    0-d tensors (index -1 / distance inf encode NULL)."""
+    cand, ok = sann_bucket_candidates(state, params, q, cfg)
+    return sann_score_candidates(state.points, cand, ok, q, 3 * cfg.L, cfg)
+
+
+def sann_query_topk(state: SANNState, params, q: torch.Tensor,
+                    cfg: SANNConfig, topk: int = 50):
+    """Top-k oracle for ``q (d,)`` (no 3L truncation, no (c,r) contract):
+    score the full bucket union with `cand_score`, keep the first occurrence
+    of each slot id, return ``(ids (k,), dists (k,))`` with
+    ``k = min(topk, L * bucket_cap)``, ascending (lowest index on ties),
+    padded with -1 / inf."""
+    cand, ok = sann_bucket_candidates(state, params, q, cfg)
+    vecs = state.points[cand.clamp(min=0).long()]
+    d2 = torch.where(ok, kernel_ops.cand_score(q, vecs), float("inf"))
+    order = _stable_argsort(cand)
+    sorted_c = cand[order]
+    dup = torch.zeros_like(ok)
+    dup[1:] = sorted_c[1:] == sorted_c[:-1]
+    first = torch.zeros_like(ok)
+    first[order] = ~dup
+    d2 = torch.where(first, d2, float("inf"))
+    vals, idx = torch.sort(d2, stable=True)
+    k = min(topk, d2.shape[0])
+    vals, idx = vals[:k], idx[:k]
+    return torch.where(torch.isfinite(vals), cand[idx], -1), torch.sqrt(vals)
 
 
 def sann_bucket_candidates_batch(state: SANNState, params, qs: torch.Tensor,

@@ -5,13 +5,19 @@ A RACE grid in which every cell is an Exponential Histogram: cell
 estimate of the increments in the last N steps; the estimator is the row
 average.  The PyTorch counterpart of the reference's ``core/swakde.py``.
 
-Ingest is two-phase (DESIGN.md §10): `swakde_prepare_chunk` hashes the
-chunk and sorts each row's codes into per-cell segments;
+`swakde_update` / `swakde_stream` are the per-point oracle (one `eh_add`
+over the L hit cells per point).  Batched ingest is two-phase (DESIGN.md
+§10): `swakde_prepare_chunk` hashes the chunk and sorts each row's codes
+into per-cell segments;
 `swakde_commit_chunk` gathers the hit cells and runs closed-form segment
 passes (the `swakde_segment_pass` kernel, DESIGN.md §12) until every
 segment is drained.  Each pass ends with one ``.any()`` check on the host,
 i.e. one device-to-host sync per pass.  The state is all int32 and
 bit-identical to the reference's, dead ring slots included.
+
+`swakde_merge` unions two sketches cell by cell (`eh.eh_merge`), and
+`BatchSWAKDE*` is the Corollary-4.2 model: one batch a timestep, SumEH
+cells fed by the `race_hist` kernel's per-cell counts.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import lsh
-from .eh import EHConfig, eh_query_cells
+from .eh import (EHConfig, EHState, SumEHConfig, SumEHState, eh_add,
+                 eh_merge, eh_query_cells, sum_eh_add)
 from .util import mean_last, resolve_device, saturating_add
 from ..kernels import ops as kernel_ops
 
@@ -64,6 +71,29 @@ def swakde_init(cfg: SWAKDEConfig, device="cuda") -> SWAKDEState:
         num=torch.zeros((cfg.L, cfg.W, eh.levels), dtype=_I32, device=device),
         t=torch.zeros((), dtype=_I32, device=device),
     )
+
+
+def swakde_update(state: SWAKDEState, params, x: torch.Tensor,
+                  cfg: SWAKDEConfig) -> SWAKDEState:
+    """One stream element ``x (d,)``: hash with L rows, `eh_add` the L hit
+    cells at timestep ``t``.  Per-point oracle; `swakde_update_chunk` is
+    bit-identical."""
+    codes = lsh.hash_points(params, x).long()               # (L,)
+    rows = torch.arange(cfg.L, device=x.device)
+    cell = eh_add(EHState(ts=state.ts[rows, codes], num=state.num[rows, codes]),
+                  state.t, cfg.eh_config())
+    ts, num = state.ts.clone(), state.num.clone()
+    ts[rows, codes] = cell.ts                               # rows distinct
+    num[rows, codes] = cell.num
+    return SWAKDEState(ts=ts, num=num, t=saturating_add(state.t, 1))
+
+
+def swakde_stream(state: SWAKDEState, params, xs: torch.Tensor,
+                  cfg: SWAKDEConfig) -> SWAKDEState:
+    """Feed ``xs (T, d)`` through `swakde_update`, one step per point."""
+    for x in xs:
+        state = swakde_update(state, params, x, cfg)
+    return state
 
 
 class SWAKDEPrep(NamedTuple):
@@ -174,6 +204,43 @@ def swakde_stream_batched(state: SWAKDEState, params, xs: torch.Tensor,
     return state
 
 
+def swakde_row_estimates(state: SWAKDEState, params, q: torch.Tensor,
+                         cfg: SWAKDEConfig) -> torch.Tensor:
+    """Per-row EH window counts at ``q (d,)`` → (L,) float32: one gather of
+    the L hit cells, queried at the clock ``t - 1``."""
+    codes = lsh.hash_points(params, q).long()
+    rows = torch.arange(cfg.L, device=q.device)
+    return eh_query_cells(state.ts[rows, codes], state.num[rows, codes],
+                          state.t - 1, cfg.eh_config())
+
+
+def swakde_query(state: SWAKDEState, params, q: torch.Tensor,
+                 cfg: SWAKDEConfig) -> torch.Tensor:
+    """Average of the L EH estimates at ``q (d,)`` — the paper's estimator
+    Ŷ, () float32 (unnormalised window density)."""
+    return mean_last(swakde_row_estimates(state, params, q, cfg))
+
+
+def swakde_kde(state: SWAKDEState, params, q: torch.Tensor,
+               cfg: SWAKDEConfig) -> torch.Tensor:
+    """Normalised sliding-window density: Ŷ / min(t, N)."""
+    denom = torch.clamp(state.t, max=cfg.window).float()
+    return swakde_query(state, params, q, cfg) / torch.clamp(denom, min=1.0)
+
+
+def swakde_merge(a: SWAKDEState, b: SWAKDEState,
+                 cfg: SWAKDEConfig) -> SWAKDEState:
+    """Combine two sketches built with identical params and a shared clock
+    over different sub-streams: every cell is the `eh_merge` of its two
+    inputs, expired at the query clock ``t - 1`` (expiring at ``t`` would
+    drop the boundary bucket stamped ``t - window`` that queries count).
+    Commutative bit for bit."""
+    t = torch.maximum(a.t, b.t)
+    m = eh_merge(EHState(a.ts, a.num), EHState(b.ts, b.num), t - 1,
+                 cfg.eh_config())
+    return SWAKDEState(ts=m.ts, num=m.num, t=t)
+
+
 def swakde_grid_estimates(state: SWAKDEState, cfg: SWAKDEConfig) -> torch.Tensor:
     """EH window counts of every cell at the query clock ``t - 1`` →
     (L, W) float32."""
@@ -216,3 +283,58 @@ def swakde_bytes(cfg: SWAKDEConfig) -> int:
     """Concrete sketch footprint (for the §4 space-bound benchmarks)."""
     eh = cfg.eh_config()
     return cfg.L * cfg.W * (eh.levels * eh.slots * 8 + eh.levels * 4) + 8
+
+
+# ---------------------------------------------------------------------------
+# Batch-update variant (Corollary 4.2): window = last N *batches*
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BatchSWAKDEConfig:
+    L: int
+    W: int
+    window: int        # N batches
+    eh_eps: float
+    batch_size: int    # R
+
+    def eh_config(self) -> SumEHConfig:
+        return SumEHConfig.create(self.window, self.eh_eps, self.batch_size)
+
+
+class BatchSWAKDEState(NamedTuple):
+    ts: torch.Tensor     # (L, W, levels, slots) int32
+    num: torch.Tensor    # (L, W, levels) int32
+    t: torch.Tensor      # () int32 — batch timestep
+
+
+def batch_swakde_init(cfg: BatchSWAKDEConfig, device="cuda") -> BatchSWAKDEState:
+    """Empty batch sketch on ``device`` (raises on ``"cuda"`` without a card)."""
+    device = resolve_device(device)
+    eh = cfg.eh_config().base
+    return BatchSWAKDEState(
+        ts=torch.full((cfg.L, cfg.W, eh.levels, eh.slots), -1, dtype=_I32,
+                      device=device),
+        num=torch.zeros((cfg.L, cfg.W, eh.levels), dtype=_I32, device=device),
+        t=torch.zeros((), dtype=_I32, device=device))
+
+
+def batch_swakde_update(state: BatchSWAKDEState, params, batch: torch.Tensor,
+                        cfg: BatchSWAKDEConfig) -> BatchSWAKDEState:
+    """One batch ``(R, d)`` arrives at one timestep: each cell's increment
+    is the number of batch elements hashing to it (the `race_hist` kernel),
+    added to every cell at once by `eh.sum_eh_add`."""
+    codes = lsh.hash_points(params, batch)                   # (R, L)
+    incr = kernel_ops.race_hist(codes, cfg.W)                # (L, W)
+    s = sum_eh_add(SumEHState(state.ts, state.num), state.t, incr,
+                   cfg.eh_config())
+    return BatchSWAKDEState(ts=s.ts, num=s.num, t=saturating_add(state.t, 1))
+
+
+def batch_swakde_query(state: BatchSWAKDEState, params, q: torch.Tensor,
+                       cfg: BatchSWAKDEConfig) -> torch.Tensor:
+    """Mean over rows of the hit cells' SumEH window counts at ``q (d,)``."""
+    codes = lsh.hash_points(params, q).long()
+    rows = torch.arange(cfg.L, device=q.device)
+    return mean_last(eh_query_cells(state.ts[rows, codes],
+                                    state.num[rows, codes], state.t - 1,
+                                    cfg.eh_config().base))

@@ -14,18 +14,13 @@ def saturating_add(counter: torch.Tensor, delta) -> torch.Tensor:
     exact but stay monotone and positive.  ``delta`` may be a Python int or
     an int tensor (broadcast against ``counter``)."""
     counter = counter.to(torch.int32)
-    delta = torch.as_tensor(delta, dtype=torch.int32, device=counter.device)
-    overflow = (delta > 0) & (counter > _INT32_MAX - delta)
+    if isinstance(delta, int):          # a scalar operand: no copy to the card
+        overflow = counter > _INT32_MAX - max(delta, 0)
+    else:
+        delta = torch.as_tensor(delta, dtype=torch.int32, device=counter.device)
+        overflow = (delta > 0) & (counter > _INT32_MAX - delta)
     return torch.where(overflow, torch.full_like(counter + delta, _INT32_MAX),
                        counter + delta)
-
-
-def true_divide(x: torch.Tensor, s: float) -> torch.Tensor:
-    """``x / s`` as an IEEE division on every device.  PyTorch's CUDA path
-    turns division by a Python scalar into multiplication by its
-    reciprocal, which can differ in the last bit from the reference's
-    division; a 0-d tensor divisor on ``x``'s device keeps true division."""
-    return x / x.new_full((), s)
 
 
 def mean_last(x: torch.Tensor) -> torch.Tensor:

@@ -41,10 +41,12 @@ SIGNATURES = {
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
     "swakde_segment_pass_launch": [P, P, P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, I, P],
+    "cand_score_launch": [P, P, P, I, I, P],
+    "srp_hash_launch": [P, P, P, P, I, I, I, I, I, P],
 }
 
 LAUNCHES = {"race_hist": 0, "sann_table_scatter": 0, "batch_score_topk": 0,
-            "swakde_segment_pass": 0}
+            "swakde_segment_pass": 0, "cand_score": 0, "srp_hash": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}

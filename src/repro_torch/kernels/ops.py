@@ -1,4 +1,4 @@
-"""Public wrappers for the four CUDA kernels of the main path.
+"""Public wrappers for the six CUDA kernels.
 
 Dispatch (single source of truth: `dispatch.py`): a CUDA tensor launches
 the hand-written kernel, a CPU tensor runs the plain version in `ref`.
@@ -11,9 +11,11 @@ import torch
 
 from . import _build
 from . import batch_score as _bs
+from . import cand_score as _cs
 from . import ingest_commit as _ic
 from . import race_update as _ru
 from . import ref
+from . import srp_hash as _sh
 from .dispatch import use_kernel
 
 LAUNCHES = _build.LAUNCHES
@@ -22,6 +24,23 @@ LAUNCHES = _build.LAUNCHES
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def srp_hash(x: torch.Tensor, proj: torch.Tensor, mix: torch.Tensor,
+             n_buckets: int) -> torch.Tensor:
+    """SRP codes of ``x (B, d)`` → ``(B, L) int32``: projection, sign bits
+    and the uint32 fold (see `ref.srp_hash_ref`)."""
+    if use_kernel(x):
+        return _sh.srp_hash(x, proj, mix, n_buckets)
+    return ref.srp_hash_ref(x, proj, mix, n_buckets)
+
+
+def cand_score(q: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """Squared L2 of ``q (d,)`` to each row of ``cands (M, d)`` → ``(M,)``
+    float32, diff-based (the per-query S-ANN scorer)."""
+    if use_kernel(cands):
+        return _cs.cand_score(q, cands)
+    return ref.cand_score_ref(q, cands)
 
 
 def race_hist(codes: torch.Tensor, W: int) -> torch.Tensor:

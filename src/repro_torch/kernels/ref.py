@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the six CUDA kernels.
 
 Each function is the semantic definition of its kernel (ported from the
 reference's ``kernels/ref.py``).  On a CPU tensor `ops` runs these; on the
@@ -10,6 +10,63 @@ from __future__ import annotations
 import torch
 
 _INT32_MAX = 2**31 - 1
+# Golden-ratio multiplicative constant for multiply-shift hashing.
+_MIX = 2654435761
+_MASK32 = 0xFFFFFFFF
+
+
+def mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``(a * b) mod 2^32`` for int64 tensors holding values in [0, 2^32):
+    the low and high 16 bits of ``a`` are multiplied separately, so no
+    intermediate exceeds 2^49."""
+    lo = (a & 0xFFFF) * b
+    hi = ((a >> 16) * b) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def fold(raw: torch.Tensor, mix: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Universal multiply-shift fold of ``(..., L, k)`` integer hashes →
+    ``(..., L)`` int32 buckets, bit-exact to the reference's uint32 wrap.
+
+    ``raw`` is any integer tensor; it is read as uint32 (two's complement,
+    as ``astype(uint32)`` does in the reference)."""
+    a = raw.to(torch.int64) & _MASK32
+    acc = mul32(a, mix).sum(dim=-1) & _MASK32
+    acc = mul32(acc, _MIX)
+    return (acc % n_buckets).to(torch.int32)
+
+
+def srp_hash_ref(x: torch.Tensor, proj: torch.Tensor, mix: torch.Tensor,
+                 n_buckets: int) -> torch.Tensor:
+    """``x (B, d)``, ``proj (d, L*k)``, ``mix (L, k)`` int64 holding uint32
+    values → codes ``(B, L)`` int32 in [0, n_buckets): one fp32 matmul, the
+    sign bits (``y >= 0``) and the uint32 fold."""
+    L, k = mix.shape
+    y = x.float() @ proj.float()                                 # (B, L*k)
+    return fold((y >= 0).reshape(x.shape[0], L, k), mix, n_buckets)
+
+
+def srp_code_flips(x: torch.Tensor, proj: torch.Tensor, mix: torch.Tensor,
+                   got: torch.Tensor, want: torch.Tensor, tol: float = 1e-5):
+    """The parity rule of the `srp_hash` kernel against `srp_hash_ref`:
+    codes may differ only where a projection's sign is within rounding of
+    0, i.e. |y| (a float64 product) <= ``tol * |x| * |proj column|`` for
+    one of the code's k projections, since the kernel's fp32 sums run in
+    another order.  Returns ``(flips, unexplained)``: the codes that
+    differ, and of those the ones with no such projection."""
+    L, k = mix.shape
+    x, proj = x.double(), proj.to(x.device).double()
+    y = (x @ proj).view(-1, L, k)
+    scale = x.norm(dim=1)[:, None] * proj.norm(dim=0)[None, :]
+    near = (y.abs() <= tol * scale.view(-1, L, k)).any(-1)
+    diff = got.to(x.device) != want.to(x.device)
+    return int(diff.sum()), int((diff & ~near).sum())
+
+
+def cand_score_ref(q: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """``q (d,)``, ``cands (M, d)`` → squared L2 distances ``(M,)`` in fp32,
+    diff-based (no matmul identity)."""
+    return ((cands.float() - q.float()[None, :]) ** 2).sum(-1)
 
 
 def race_update_ref(counts: torch.Tensor, codes: torch.Tensor,

@@ -8,12 +8,15 @@ Run them on the card with
 
 Shapes here are small and chosen for edge cases the main path does not
 reach: a histogram wider than shared memory, k = 64, d not a multiple of
-32, ties, fully masked rows, capped segment passes.
+32, ties, fully masked rows, capped segment passes, unaligned rows, hash
+rows split across blocks.  `cand_score` and `srp_hash` also run at their
+main-path shapes.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import batch_score, ingest_commit, ops, race_update, ref
+from repro_torch.kernels import (batch_score, cand_score, ingest_commit, ops,
+                                 race_update, ref, srp_hash)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +119,81 @@ def test_wrappers_count_launches_and_check_arguments(dev):
         race_update.race_hist(codes.long(), 4)
     with pytest.raises(ValueError):
         race_update.race_hist(codes.t(), 4)
+
+
+@pytest.mark.parametrize("M,d", [(36, 128), (384, 128), (1, 5), (70, 33)])
+def test_cand_score_kernel_matches_plain(dev, M, d):
+    g = torch.Generator(device=dev).manual_seed(M + d)
+    q = torch.randn((d,), generator=g, device=dev)
+    cands = torch.randn((M, d), generator=g, device=dev)
+    cands[0] = q                                        # distance 0
+    got = cand_score.cand_score(q, cands)
+    torch.testing.assert_close(got, ref.cand_score_ref(q, cands),
+                               rtol=1e-5, atol=1e-6)
+    assert float(got[0]) == 0.0
+    # a row slice at an odd offset takes the scalar path
+    buf = torch.randn((M * d + 1,), generator=g, device=dev)
+    odd = buf[1:].view(M, d)
+    torch.testing.assert_close(cand_score.cand_score(q, odd),
+                               ref.cand_score_ref(q, odd), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,d,L,k,nb", [(4096, 384, 96, 2, 96), (1, 384, 96, 2, 96),
+                                        (77, 50, 13, 5, 1009), (130, 20, 3, 64, 7)])
+def test_srp_hash_kernel_matches_plain(dev, B, d, L, k, nb):
+    g = torch.Generator(device=dev).manual_seed(B + L)
+    x = torch.randn((B, d), generator=g, device=dev)
+    proj = torch.randn((d, L * k), generator=g, device=dev)
+    mix = torch.randint(1, 2**31 - 1, (L, k), generator=g, device=dev,
+                        dtype=torch.int64) * 2 + 1
+    mix[0, 0] = 2**32 - 1
+    got = srp_hash.srp_hash(x, proj, mix, nb)
+    want = ref.srp_hash_ref(x, proj, mix, nb)
+    assert got.dtype == torch.int32 and got.shape == (B, L)
+    assert bool(((got >= 0) & (got < nb)).all())
+    flips, unexplained = ref.srp_code_flips(x, proj, mix, got, want)
+    assert unexplained == 0, "srp_hash code differs away from a sign boundary"
+    assert flips <= max(1, B * L // 1000)
+
+
+def test_new_wrappers_count_launches_and_refuse_bad_arguments(dev):
+    ops.reset_launches()
+    q, cands = torch.zeros(8, device=dev), torch.zeros((3, 8), device=dev)
+    ops.cand_score(q, cands)
+    ops.cand_score(q.cpu(), cands.cpu())                 # plain version: no count
+    x, proj = torch.zeros((4, 8), device=dev), torch.zeros((8, 6), device=dev)
+    mix = torch.ones((3, 2), dtype=torch.int64, device=dev)
+    ops.srp_hash(x, proj, mix, 5)
+    ops.srp_hash(x.cpu(), proj.cpu(), mix.cpu(), 5)
+    assert ops.LAUNCHES["cand_score"] == 1 and ops.LAUNCHES["srp_hash"] == 1
+    with pytest.raises(ValueError):
+        cand_score.cand_score(q.double(), cands.double())
+    with pytest.raises(ValueError):
+        srp_hash.srp_hash(x, proj, mix.int(), 5)
+    with pytest.raises(ValueError):
+        srp_hash.srp_hash(x.half(), proj, mix, 5)
+    with pytest.raises(ValueError):
+        srp_hash.srp_hash(x, proj.t().contiguous().t(), mix, 5)
+
+
+@pytest.mark.parametrize("w", [9.612, 3.0, 1.6])
+def test_pstable_scalar_reciprocal_is_one_fp32_multiply_on_the_card(dev, w):
+    """`lsh.fp32_reciprocal` is a Python float; times a CUDA float32 tensor
+    it must give the CPU's bits (one fp32 multiply by float32(1)/float32(w))."""
+    from repro_torch.core import lsh
+    g = torch.Generator(device=dev).manual_seed(int(w * 10))
+    y = torch.randn((1 << 20,), generator=g, device=dev) * 50
+    r = lsh.fp32_reciprocal(w)
+    one = torch.tensor(1.0, dtype=torch.float32)
+    assert torch.equal((y * r).cpu(),
+                       y.cpu() * (one / torch.tensor(w, dtype=torch.float32)))
+
+
+def test_keep_draws_are_bit_identical_on_the_card(dev):
+    from repro_torch.core import prng, sann
+    key = prng.fold_in(prng.PRNGKey(7), 3)
+    for n in (1, 4096):
+        keys = sann.sann_row_keys(key.to(dev), n)
+        assert torch.equal(keys.cpu(), sann.sann_row_keys(key, n))
+        assert torch.equal(prng.bernoulli(keys, 0.3).cpu(),
+                           prng.bernoulli(keys.cpu(), 0.3))

@@ -1,8 +1,12 @@
 """Each plain PyTorch version in repro_torch.kernels.ref against the
-reference's oracle (repro.kernels.ref / repro.kernels.ops on the CPU).
+reference's oracle (repro.kernels.ref / repro.kernels.ops on the CPU), and
+for srp_hash and cand_score against the reference's Pallas kernels in
+interpret mode.
 
-Integer outputs are bit-exact; batch_score_topk's d2 agrees within
-(1e-5, 1e-6) and its ids except at detected near-ties.
+Integer outputs are bit-exact (srp_hash: away from a sign boundary of the
+projection); batch_score_topk's and cand_score's d2 agree within
+(1e-5, 1e-6), the fp32 summation order, and ids except at detected
+near-ties.
 """
 import jax
 import jax.numpy as jnp
@@ -10,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import cand_score as jcand_score
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import srp_hash as jsrp_hash
 from repro.core import swakde as jswakde
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -23,6 +29,68 @@ _commit = jax.jit(jswakde.swakde_commit_chunk, static_argnums=(2,))
 _prep_codes = jax.jit(jswakde.swakde_prepare_from_codes, static_argnums=(1,))
 _seg_pass = jax.jit(jref.swakde_segment_pass_ref,
                     static_argnames=("window", "maxb", "n_levels", "cap"))
+
+
+def test_srp_hash_matches_reference_pallas_interpret():
+    """Codes of the plain version equal the Pallas kernel's (interpret
+    mode) and the reference's oracle wherever no projection of the row
+    lies within 1e-4 of the sign boundary (float64 product)."""
+    rng = np.random.default_rng(5)
+    B, d, L, k, nb = 40, 24, 6, 3, 97
+    x = rng.normal(size=(B, d)).astype(np.float32)
+    proj = rng.normal(size=(d, L * k)).astype(np.float32)
+    mix = ((rng.integers(1, 2**31 - 1, size=(L, k)).astype(np.uint32) << 1)
+           | np.uint32(1))
+    mix[0, 0] = np.uint32(2**32 - 1)                     # fold wraps mod 2^32
+    pallas = np.asarray(jsrp_hash.srp_hash(jnp.asarray(x), jnp.asarray(proj),
+                                           jnp.asarray(mix), nb, block_b=16,
+                                           interpret=True))
+    oracle = np.asarray(jax.jit(jref.srp_hash_ref, static_argnums=(3,))(
+        jnp.asarray(x), jnp.asarray(proj), jnp.asarray(mix), nb))
+    got = tops.srp_hash(torch.from_numpy(x), torch.from_numpy(proj),
+                        torch.from_numpy(mix.astype(np.int64)), nb)
+    assert got.dtype == torch.int32 and got.shape == (B, L)
+    y = x.astype(np.float64) @ proj.astype(np.float64)
+    near = (np.abs(y) < 1e-4).reshape(B, L, k).any(-1)
+    for want in (pallas, oracle):
+        assert not ((got.numpy() != want) & ~near).any()
+    assert (got.numpy() == pallas).mean() > 0.99
+
+
+def test_srp_code_flips_explains_only_sign_boundary_flips():
+    """The kernel's parity rule: a code that differs is explained only when
+    one of its k projections lies within tol * |x| * |proj column| of 0."""
+    rng = np.random.default_rng(9)
+    B, d, L, k, nb = 30, 12, 5, 2, 1009
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
+    proj = torch.from_numpy(rng.normal(size=(d, L * k)).astype(np.float32))
+    x[:, 0] = 0.0
+    proj[:, 0] = 0.0
+    proj[0, 0] = 1.0                      # y = 0: hash row 0 on its boundary
+    mix = torch.from_numpy(rng.integers(1, 2**31 - 1, size=(L, k)) * 2 + 1)
+    want = tref.srp_hash_ref(x, proj, mix, nb)
+    assert tref.srp_code_flips(x, proj, mix, want, want) == (0, 0)
+    got = want.clone()
+    got[:, 0] = (got[:, 0] + 1) % nb      # flips at the boundary
+    assert tref.srp_code_flips(x, proj, mix, got, want) == (B, 0)
+    got[3, 2] = (got[3, 2] + 1) % nb      # a flip away from any boundary
+    assert tref.srp_code_flips(x, proj, mix, got, want) == (B + 1, 1)
+
+
+def test_cand_score_matches_reference_pallas_interpret():
+    rng = np.random.default_rng(6)
+    M, d = 37, 20
+    q = rng.normal(size=d).astype(np.float32)
+    cands = rng.normal(size=(M, d)).astype(np.float32)
+    cands[5] = q                                         # distance 0
+    pallas = np.asarray(jcand_score.cand_score(jnp.asarray(q), jnp.asarray(cands),
+                                               block_m=16, interpret=True))
+    oracle = np.asarray(jref.cand_score_ref(jnp.asarray(q), jnp.asarray(cands)))
+    got = tops.cand_score(torch.from_numpy(q), torch.from_numpy(cands))
+    assert got.dtype == torch.float32 and got.shape == (M,)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert float(got[5]) == 0.0
 
 
 def test_race_hist_matches_reference():

@@ -14,6 +14,7 @@ import torch
 
 from repro.core import sann as jsann
 from repro_torch import convert
+from repro_torch.core import prng
 from repro_torch.core import sann as tsann
 
 from torch_parity import (assert_state_equal, assert_topk_match, fields, np_,
@@ -163,32 +164,34 @@ def test_sann_bytes_matches_reference():
 
 
 def test_insert_chunked_is_prepare_then_commit(built):
-    """`sann_insert_chunked` draws each chunk's keep bits from the generator
-    in order: the same as preparing and committing chunk by chunk."""
+    """`sann_insert_chunked` gives chunk j the key ``split(key, n)[j]``:
+    the same as preparing and committing chunk by chunk under those keys."""
     *_, cfg_t, params_t, _, xs = built
     flat = torch.from_numpy(xs.reshape(-1, xs.shape[-1]))
+    key = prng.PRNGKey(3)
     a = tsann.sann_insert_chunked(tsann.sann_empty_state(cfg_t, "cpu"), params_t,
-                                  flat, torch.Generator().manual_seed(3), cfg_t,
-                                  chunk=100)
-    g = torch.Generator().manual_seed(3)
+                                  flat, key, cfg_t, chunk=100)
     b = tsann.sann_empty_state(cfg_t, "cpu")
-    for i in range(0, flat.shape[0], 100):
+    n = -(-flat.shape[0] // 100)
+    for j, ck in enumerate(prng.split(key, n)):
         b = tsann.sann_commit_chunk(
-            b, tsann.sann_prepare_chunk(params_t, flat[i:i + 100], g, cfg_t), cfg_t)
+            b, tsann.sann_prepare_chunk(params_t, flat[j * 100:(j + 1) * 100],
+                                        ck, cfg_t), cfg_t)
     assert_state_equal(a, b)
     assert int(a.n_seen) == flat.shape[0]
 
 
 def test_keep_fraction_within_6_sigma():
-    """The port's own Bernoulli draw (torch.rand < keep_prob) keeps the
-    expected fraction; it does not reproduce JAX's threefry bits."""
+    """The keep draw (threefry bernoulli per point) keeps the expected
+    fraction of a long chunk."""
     cfg = tsann.SANNConfig(dim=2, n_max=400, eta=0.3, r=1.0, c=1.5, L=2, k=1,
                            bucket_cap=2).resolved()
     g = torch.Generator().manual_seed(5)
     params = tsann.lsh.init_pstable(g, 2, cfg.L, cfg.k, cfg.w, cfg.n_buckets,
                                     device="cpu")
     n = 20_000
-    prep = tsann.sann_prepare_chunk(params, torch.zeros(n, 2), g, cfg)
+    prep = tsann.sann_prepare_chunk(params, torch.zeros(n, 2),
+                                    prng.PRNGKey(5), cfg)
     p = cfg.keep_prob
     frac = float(prep.keep.float().mean())
     assert abs(frac - p) <= 6 * (p * (1 - p) / n) ** 0.5

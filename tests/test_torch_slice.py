@@ -1,11 +1,10 @@
 """The port's first slice as a whole against the reference on the CPU.
 
-The reference's params cross over through repro_torch.convert and the port
-hashes on its own; only S-ANN's keep masks are injected (the port draws its
-own Bernoulli bits with torch.Generator, not JAX's threefry bits).  A short
-S-ANN stream and a short SW-AKDE + RACE stream run through both packages,
-and the final states and query answers agree: integer state bit-exact,
-estimates equal, distances within (1e-5, 1e-6).
+The reference's params cross over through repro_torch.convert; the port
+hashes on its own and draws S-ANN's keep decisions from the same threefry
+keys.  A short S-ANN stream and a short SW-AKDE + RACE stream run through
+both packages, and the final states and query answers agree: integer state
+bit-exact, estimates equal, distances within (1e-5, 1e-6).
 
 Also: the port imports neither jax nor the reference package, and its
 allocating entry points default to the card and raise without one.
@@ -56,13 +55,14 @@ def test_sann_stream_and_queries_match_reference():
     prep_j = jax.jit(jsann.sann_prepare_chunk, static_argnums=(3,))
     commit_j = jax.jit(jsann.sann_commit_chunk, static_argnums=(2,))
     xs = _clustered(4 * 256, 16, 1)
-    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(1), 4)):
+    keys = jax.random.split(jax.random.PRNGKey(1), 4)
+    for i, key in enumerate(keys):
         x = xs[i * 256:(i + 1) * 256]
         pj = prep_j(params_j, jnp.asarray(x), key, cfg_j)
         st_j = commit_j(st_j, pj, cfg_j)
-        pt = tsann.sann_prepare_given_keep(
-            params_t, torch.from_numpy(x), torch.from_numpy(np.array(pj.keep)),
-            cfg_t)
+        pt = tsann.sann_prepare_chunk(
+            params_t, torch.from_numpy(x),
+            convert.key_from_numpy(np.asarray(key), "cpu"), cfg_t)
         st_t = tsann.sann_commit_chunk(st_t, pt, cfg_t)
     assert_state_equal(st_t, st_j)
     assert int(st_t.n_stored) > 20
