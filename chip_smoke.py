@@ -25,7 +25,16 @@ user calls, at full width:
   ``sann_insert_batch``; ``swakde_stream`` and ``race_update`` over 8192
   points against the chunked paths; the per-query KDE functions against the
   batch ones; ``swakde_merge``; and the Corollary-4.2 ``BatchSWAKDE``.
-  Only the oracle streams are cut (per-point Python loops).
+  Only the oracle streams are cut (per-point Python loops);
+* **sketch-gated LM decode**, gemma3-4b at its published width and depth in
+  bf16 with random weights from the seed (``init_model`` →
+  ``init_cache(sketch=True)`` → ``make_serve_step(sketch=True)``): 4
+  requests of 512 prompt tokens fed one a step, then 512 greedy tokens,
+  over a 4096-token cache; the five global layers' attention is the
+  ``sketch_decode_attn`` kernel.  Then B = 1 over a 131 072-token cache
+  whose block signatures are sparse (8 steps from length 131 000), and the
+  first 6 layers in fp32 against the CPU plain path (depth cut: the CPU
+  copy of the weights).
 
 Keep decisions come from a threefry key on each device.  Kernel launch
 counts are zeroed just before each path and read just after.  Each path's
@@ -67,6 +76,14 @@ MERGE_PREFIX = 131_072
 BATCH_KDE_BATCHES, BATCH_KDE_WINDOW = 64, 16
 RTOL, ATOL = 1e-5, 1e-6          # fp32 summation order (scorers)
 SRP_FLIP_TOL = 1e-5              # |y| <= tol * |x| * |proj column| may flip
+# LM decode (gemma3-4b at its published width): lm_serve, lm_long, and the
+# depth-cut fp32 cross-check against the CPU
+LM_BLOCK = 512                   # SKETCH_BLOCK
+LM_B, LM_S, LM_PROMPT, LM_GEN = 4, 4096, 512, 512
+LM_LONG_S, LM_LONG_LEN, LM_LONG_STEPS = 131_072, 131_000, 8
+LM_CROSS_LAYERS = 6              # one 5:1 local:global period
+SDA_RTOL, SDA_ATOL = 2e-5, 2e-5  # fp32 sums in another order (the reference
+                                 # kernel's own bound, tests/test_kernels.py)
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -79,6 +96,7 @@ REPLACES = {
     "batch_score_topk": "src/repro/kernels/batch_score.py:73",
     "swakde_segment_pass": "src/repro/kernels/ingest_commit.py:57",
     "sann_table_scatter": "src/repro/kernels/ingest_commit.py:135",
+    "sketch_decode_attn": "src/repro/kernels/sketch_decode_attn.py:81",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
@@ -148,7 +166,9 @@ KERNEL_SYMBOLS = {"race_hist": "race_hist_smem",
                   "batch_score_topk": "batch_score_topk_kernel",
                   "swakde_segment_pass": "swakde_segment_pass_kernel",
                   "cand_score": "cand_score_kernel",
-                  "srp_hash": "srp_hash_kernel"}
+                  "srp_hash": "srp_hash_kernel",
+                  # both launches of a call: the split pass and the combine
+                  "sketch_decode_attn": "sketch_decode_attn_"}
 
 
 def _device_us(evt) -> float:
@@ -842,6 +862,282 @@ def phase_kde_oracles(srp_run, device):
                          "batch_swakde_points": [BATCH_KDE_BATCHES * CHUNK, KDE_N]}})
 
 # --------------------------------------------------------------------------
+# phase 3d: sketch-gated LM decode (gemma3-4b), the sketch_decode_attn kernel
+# --------------------------------------------------------------------------
+
+def lm_config(n_layers=None, dtype="bfloat16"):
+    """gemma3-4b at its published width (`configs/gemma3_4b.py`), in
+    ``dtype``; ``n_layers`` cuts the depth (the cross-check only)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get_config("gemma3-4b"), param_dtype=dtype)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def global_layers(cfg):
+    from repro_torch.models import model
+    return [i for i, w in enumerate(model.window_pattern(cfg)) if w <= 0]
+
+
+def injected_lm_state(cfg, B, s_max, length, seed):
+    """A decode cache at ``length`` as numpy arrays (the parity tests' state):
+    random K/V below ``length``; block signatures random except block 0,
+    which is sparse (8 bits) for request 0 and dense for the others, so
+    request 0's global layers prune it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    kv = []
+    for _ in range(2):
+        x = np.zeros((L, B, s_max, Hkv, dh), np.float32)
+        x[:, :, :length] = rng.normal(size=(L, B, length, Hkv, dh))
+        kv.append(x)
+    sigs = rng.random((L, B, s_max // LM_BLOCK, 64)) < 0.5
+    sigs[:, 0, 0] = False
+    for layer in range(L):
+        sigs[layer, 0, 0, rng.choice(64, size=8, replace=False)] = True
+    sigs[:, 1:, 0] = rng.random((L, B - 1, 64)) < 0.9
+    return {"length": length, "k": kv[0], "v": kv[1], "block_sigs": sigs}
+
+
+def live_sets(last_live):
+    """[(block_ids, n_live), ...] of one step → per layer, per request, the
+    set of live block ids."""
+    out = []
+    for ids, n in last_live:
+        ids, n = ids.cpu(), n.cpu()
+        out.append([set(ids[b, :int(n[b])].tolist()) for b in range(ids.shape[0])])
+    return out
+
+
+def phase_lm_cross_check(seed, device, n_layers=LM_CROSS_LAYERS, B=2,
+                         s_max=1024, length=600, steps=8):
+    """The first ``n_layers`` of gemma3-4b at full width in fp32 (TF32 off),
+    on the card and on the CPU (plain versions) from one injected state:
+    logits within 1e-4 of the largest, caches within 1e-5 of the largest,
+    signature flips only at sign boundaries, live sets equal."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import model
+    from repro_torch.serve import serve_step
+    cfg = lm_config(n_layers, "float32")
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    params = model.init_model(cfg, gen, device)
+    params_cpu = model.ParamTree(_tree_to(params.to_dict(), "cpu"))
+    state = injected_lm_state(cfg, B, s_max, length, seed + 12)
+    caches = {d: convert.lm_cache_from_numpy(state, d) for d in (device, "cpu")}
+    steps_fn = {d: serve_step.make_serve_step(cfg, sketch=True)
+                for d in (device, "cpu")}
+    tokens = np.random.default_rng(seed + 13).integers(0, cfg.vocab, (B, steps))
+    logit_err = 0.0
+    live_equal, pruned = True, 0
+    for t in range(steps):
+        out = {}
+        for d, p in ((device, params), ("cpu", params_cpu)):
+            tok = torch.from_numpy(tokens[:, t:t + 1]).to(d)
+            out[d], caches[d] = steps_fn[d](p, caches[d], tok)
+        sync(device)
+        ref_logits = out["cpu"]
+        if not torch.isfinite(out[device]).all():
+            fail("lm_cross_check: logits not finite on the card")
+        logit_err = max(logit_err, float((out[device].cpu() - ref_logits).abs().max()
+                                         / ref_logits.abs().max()))
+        a, b = (live_sets(steps_fn[d].last_live) for d in (device, "cpu"))
+        live_equal &= a == b
+        in_range = -(-(length + t + 1) // LM_BLOCK)
+        pruned += sum(len(s) < in_range for layer in b for s in layer)
+    cache_err = {}
+    for name in ("k", "v"):
+        got, want = caches[device][name].cpu(), caches["cpu"][name]
+        cache_err[name] = float((got - want).abs().max() / want.abs().max())
+    # signature bits may differ only where a new key's projection is at the
+    # sign boundary
+    new_k = caches["cpu"]["k"][:, :, length:length + steps]
+    L, _, T, Hkv, dh = new_k.shape
+    mean = serve_step._head_mean(new_k.reshape(L * B, T, Hkv, dh)).reshape(L, B, T, dh)
+    near = serve_step.sig_near_boundary(mean, serve_step._sig_proj(dh))
+    near_blk = torch.zeros_like(caches["cpu"]["block_sigs"])
+    for t in range(steps):
+        near_blk[:, :, (length + t) // LM_BLOCK] |= near[:, :, t]
+    diff = caches[device]["block_sigs"].cpu() != caches["cpu"]["block_sigs"]
+    flips, unexplained = int(diff.sum()), int((diff & ~near_blk).sum())
+    emit({"phase": "lm_cross_check", "arch": cfg.arch_id, "dtype": "float32",
+          "layers": [n_layers, lm_config().n_layers], "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "B": B, "s_max": s_max, "start_length": length,
+          "steps": steps, "global_layers": global_layers(cfg),
+          "max_logit_err_rel": logit_err, "cache_err_rel": cache_err,
+          "sig_flips": flips, "sig_flips_unexplained": unexplained,
+          "live_sets_equal": live_equal, "pruned_layer_requests": pruned,
+          "depth_cut": "the CPU copy of the fp32 weights: 7.6 GB at 6 layers "
+                       "(one 5:1 local:global period), 18.2 GB at 34"})
+    if logit_err > 1e-4 or max(cache_err.values()) > 1e-5:
+        fail(f"lm_cross_check: card and CPU disagree ({logit_err}, {cache_err})")
+    if unexplained or not live_equal:
+        fail("lm_cross_check: signatures or live sets differ")
+    if not pruned:
+        fail("lm_cross_check: the injected state pruned nothing")
+    del params, params_cpu, caches
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def phase_lm_serve(seed, device, cfg=None, B=LM_B, s_max=LM_S, prompt=LM_PROMPT,
+                   gen_tokens=LM_GEN):
+    """gemma3-4b at full width and depth in bf16 (random weights from the
+    seed), sketch on: ``B`` requests, each a ``prompt``-token prompt fed one
+    token a step, then ``gen_tokens`` greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = cfg or lm_config()
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    t0 = time.perf_counter()
+    params = model.init_model(cfg, gen, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    cache = kv_cache.init_cache(cfg, B, s_max, sketch=True, device=device)
+    step = serve_step.make_serve_step(cfg, sketch=True)
+    prompts = torch.from_numpy(np.random.default_rng(seed + 14).integers(
+        0, cfg.vocab, (B, prompt))).to(device)
+    n_steps = prompt + gen_tokens
+    times = []
+    sync(device)
+    ops.reset_launches()
+    t_all = time.perf_counter()
+    tok = prompts[:, :1]
+    for t in range(n_steps):
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok)
+        tok = prompts[:, t + 1:t + 2] if t + 1 < prompt else logits.argmax(-1)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    launches = dict(ops.LAUNCHES)
+    glob = global_layers(cfg)
+    if launches["sketch_decode_attn"] != len(glob) * n_steps:
+        fail(f"sketch_decode_attn launches {launches['sketch_decode_attn']}: "
+             f"expected {len(glob)} global layers x {n_steps} steps")
+    if logits.shape != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        fail("lm_serve: logits must be finite, one row per request")
+    if cache["length"] != n_steps:
+        fail("lm_serve: cache length")
+    ms = sorted(x * 1e3 for x in times)
+    live = {layer: [int(n) for n in nl.cpu()]
+            for layer, (_, nl) in zip(glob, step.last_live)}
+    emit({"phase": "lm_serve", "arch": cfg.arch_id, "dtype": cfg.param_dtype,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "global_layers": glob, "B": B, "s_max": s_max, "prompt_tokens": prompt,
+          "generated_tokens": gen_tokens, "steps": n_steps,
+          "init_s": init_s, "wall_s": wall, "tokens_per_s": B * n_steps / wall,
+          "step_ms_median": ms[len(ms) // 2], "step_ms_p90": ms[int(0.9 * len(ms))],
+          "weight_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+          "cache_bytes": kv_cache.cache_bytes(cache),
+          "in_range_blocks_last_step": -(-n_steps // LM_BLOCK),
+          "live_blocks_last_step": live,
+          "launches": {"sketch_decode_attn": launches["sketch_decode_attn"]}})
+    return dict(cfg=cfg, params=params, cache=cache, step=step, tok=tok,
+                launches=launches)
+
+
+def long_cache(cfg, device, length, s_max, seed):
+    """A B = 1 cache at ``length`` whose keys cluster by block: each block's
+    keys are a block-specific direction per KV head plus noise, so the block
+    signatures are sparse; values are random.  The signatures are built with
+    the port's own rule (the OR of `_sig_bits` of each key's head mean over
+    its block), and for the last block of every global layer checked
+    against replaying `_update_sigs` token by token."""
+    import torch
+    from repro_torch.serve import kv_cache, serve_step
+    dt = torch.bfloat16
+    cache = kv_cache.init_cache(cfg, 1, s_max, sketch=True, device=device)
+    cache["length"] = length
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    nb = s_max // LM_BLOCK
+    proj = serve_step._sig_proj(dh, device)
+    pos_ok = (torch.arange(s_max, device=device) < length).reshape(nb, LM_BLOCK, 1)
+    replay_ok = True
+    last = (length - 1) // LM_BLOCK
+    glob = set(global_layers(cfg))
+    for layer in range(cfg.n_layers):
+        dirs = torch.randn((nb, 1, Hkv, dh), generator=gen, device=device)
+        noise = torch.randn((nb, LM_BLOCK, Hkv, dh), generator=gen, device=device)
+        k = (dirs + 0.1 * noise).reshape(1, s_max, Hkv, dh)
+        k[:, length:] = 0
+        cache["k"][layer] = k.to(dt)
+        v = torch.randn((1, s_max, Hkv, dh), generator=gen, device=device)
+        v[:, length:] = 0
+        cache["v"][layer] = v.to(dt)
+        kl = cache["k"][layer]                                 # (1, S, Hkv, dh)
+        bits = serve_step._sig_bits(serve_step._head_mean(kl)[0], proj)  # (S, 64)
+        sigs = (bits.reshape(nb, LM_BLOCK, 64) & pos_ok).any(1)
+        cache["block_sigs"][layer, 0] = sigs
+        if layer in glob:
+            replay = torch.zeros((1, nb, 64), dtype=torch.bool, device=device)
+            for p in range(last * LM_BLOCK, length):
+                serve_step._update_sigs(replay, kl[:, p:p + 1], p)
+            replay_ok &= torch.equal(replay[0, last], sigs[last])
+    if not replay_ok:
+        fail("lm_long: block signatures differ from replaying _update_sigs")
+    return cache
+
+
+def phase_lm_long(seed, serve_run, device, s_max=LM_LONG_S,
+                  length=LM_LONG_LEN, steps=LM_LONG_STEPS):
+    """The same model at B = 1 over a 131 072-token cache whose block
+    signatures are sparse: 8 decode steps from length 131 000."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import kv_cache, serve_step
+    cfg, params = serve_run["cfg"], serve_run["params"]
+    t0 = time.perf_counter()
+    cache = long_cache(cfg, device, length, s_max, seed + 15)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    step = serve_step.make_serve_step(cfg, sketch=True)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 16).integers(
+        0, cfg.vocab, (1, steps))).to(device)
+    glob = global_layers(cfg)
+    frac = {layer: [] for layer in glob}
+    times = []
+    ops.reset_launches()
+    for t in range(steps):
+        sync(device)
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tokens[:, t:t + 1])
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        in_range = -(-(length + t + 1) // LM_BLOCK)
+        for layer, (_, n) in zip(glob, step.last_live):
+            frac[layer].append(int(n[0]) / in_range)
+    launches = ops.LAUNCHES["sketch_decode_attn"]
+    if launches != len(glob) * steps:
+        fail(f"lm_long: sketch_decode_attn launched {launches} times")
+    if not torch.isfinite(logits).all():
+        fail("lm_long: logits not finite")
+    mean_frac = float(np.mean([f for fs in frac.values() for f in fs]))
+    if not mean_frac < 1.0:
+        fail("lm_long: the sparse-signature state pruned no block")
+    ms = sorted(x * 1e3 for x in times)
+    emit({"phase": "lm_long", "arch": cfg.arch_id, "dtype": cfg.param_dtype,
+          "B": 1, "s_max": s_max, "start_length": length, "steps": steps,
+          "cache_build_s": build_s, "cache_bytes": kv_cache.cache_bytes(cache),
+          "step_ms_median": ms[len(ms) // 2], "step_ms_max": ms[-1],
+          "live_fraction_per_global_layer": {k: float(np.mean(v))
+                                             for k, v in frac.items()},
+          "live_fraction_mean": mean_frac,
+          "launches": {"sketch_decode_attn": launches}})
+
+
+# --------------------------------------------------------------------------
 # phase 4: every kernel against its plain version, timed
 # --------------------------------------------------------------------------
 
@@ -1079,6 +1375,78 @@ def check_srp_hash(srp_run, device):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def check_sketch_decode_attn(serve_run, device):
+    """The kernel against its plain version on the card, within
+    SDA_ATOL + SDA_RTOL * |plain| (fp32 sums in another order: the tile
+    and split order against one softmax over the whole row): at the main
+    path's shape (lm_serve's last step: B = 4, S = 4096, its live lists and
+    kv_len, a random q) and at B = 1, S = 131 072 (gemma3-4b's 128k context)
+    with 100 %, 50 % and 10 % of the blocks live, softcap 0 and 50, and
+    with no live block (zeros)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, sketch_decode_attn as sda
+    cfg = serve_run["cfg"]
+    Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // Hkv
+    gen = torch.Generator(device=device).manual_seed(17)
+    layer = global_layers(cfg)[-1]
+    cache = serve_run["cache"]
+    ids, n_live = serve_run["step"].last_live[-1]
+    cases = [("lm_serve", cache["k"][layer], cache["v"][layer], ids, n_live,
+              cache["length"], 0.0)]
+    S, kv_len = LM_LONG_S, LM_LONG_LEN
+    k = torch.randn((1, S, Hkv, dh), generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn((1, S, Hkv, dh), generator=gen, device=device).to(torch.bfloat16)
+    nb = S // LM_BLOCK
+    for frac in (1.0, 0.5, 0.1, 0.0):
+        live = torch.rand((1, nb), generator=gen, device=device) < frac
+        ids, n_live = sda.compact_live(live)
+        for softcap in ((0.0, 50.0) if frac else (0.0,)):
+            cases.append((f"long_{frac}", k, v, ids, n_live, kv_len, softcap))
+    rows = []
+    for name, k, v, ids, n_live, kv_len, softcap in cases:
+        B, S = k.shape[:2]
+        q = torch.randn((B, Hkv, G, dh), generator=gen, device=device).to(k.dtype)
+        live = sda.block_mask(ids, n_live, S // LM_BLOCK)
+        got = sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len, LM_BLOCK, softcap)
+        want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, LM_BLOCK, softcap)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=SDA_RTOL, atol=SDA_ATOL):
+            fail(f"sketch_decode_attn differs from its plain version ({name})")
+        if not bool(live.any()) and bool(got.any()):
+            fail("sketch_decode_attn: an empty live list must give zeros")
+        pos = torch.arange(S, device=device)
+        pos_live = live[:, pos // LM_BLOCK] & (pos < kv_len)[None]     # (B, S)
+        n_pos = int(pos_live.sum())
+        nbytes = (n_pos * Hkv * dh * 2 * k.element_size() + q.numel() * q.element_size()
+                  + got.numel() * 4 + ids.numel() * 4 + n_live.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4.0 * n_pos * Hkv * G * dh)
+        call = lambda: sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
+                                              LM_BLOCK, softcap)
+        library_ms = None
+        if softcap == 0.0 and n_pos:
+            ql = q.reshape(B, Hkv * G, 1, dh)
+            kl, vl = k.transpose(1, 2), v.transpose(1, 2)
+            mask = pos_live[:, None, None, :]
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True), 10, device)
+        rows.append({
+            "name": "sketch_decode_attn", "case": name,
+            "shape": [B, S, Hkv, G, dh], "kv_len": kv_len, "softcap": softcap,
+            "live_blocks": int(live.sum()), "live_positions": n_pos,
+            "max_abs_err": err, "tolerance": [SDA_RTOL, SDA_ATOL],
+            "ms": time_ms(call, 20, device),
+            "device_ms": device_ms(call, "sketch_decode_attn", device),
+            "plain_ms": time_ms(lambda: ref.sketch_decode_attn_ref(
+                q, k, v, live, kv_len, LM_BLOCK, softcap), 3, device),
+            "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
+                       "over the whole cache",
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler over short main-path windows)
 # --------------------------------------------------------------------------
@@ -1117,7 +1485,7 @@ def profile_window(name, fn, device, top=10):
                              for k, us, c in rows[:top]]})
 
 
-def phase_profile(sann_run, kde_run, srp_run, device, n_chunks=4):
+def phase_profile(sann_run, kde_run, srp_run, serve_run, device, n_chunks=4):
     from repro_torch.core import prng, race, sann, swakde
     s, k = sann_run, kde_run
     qs = s["queries"][:QUERY_BLOCK]
@@ -1164,13 +1532,20 @@ def phase_profile(sann_run, kde_run, srp_run, device, n_chunks=4):
         for q in qs[:64]:
             sann.sann_query(s["state"], s["params"], q, s["cfg"])
 
+    def lm_decode_step():
+        # one more token for lm_serve's 4 requests (their cache has room)
+        r = serve_run
+        logits, r["cache"] = r["step"](r["params"], r["cache"], r["tok"])
+        r["tok"] = logits.argmax(-1)
+
     for name, fn in (("sann_ingest_4_chunks", sann_ingest),
                      ("sann_keep_draws_4_chunks", sann_keep_draws),
                      ("sann_query_block_2048", sann_queries),
                      ("swakde_race_ingest_4_chunks", kde_ingest),
                      ("swakde_race_query_block_2048", kde_queries),
                      ("srp_swakde_ingest_4_chunks", srp_ingest),
-                     ("sann_query_oracle_64", sann_oracle_queries)):
+                     ("sann_query_oracle_64", sann_oracle_queries),
+                     ("lm_serve_decode_step", lm_decode_step)):
         profile_window(name, fn, device)
 
 
@@ -1199,12 +1574,16 @@ def main(argv=None) -> int:
     srp_run = phase_srp_kde(args.seed, kde_run, device)
     oracle_launches = phase_sann_oracles(sann_run, device)
     phase_kde_oracles(srp_run, device)
+    phase_lm_cross_check(args.seed, device)
+    serve_run = phase_lm_serve(args.seed, device)
+    phase_lm_long(args.seed, serve_run, device)
     launches = {**{k: sann_run["launches"][k] for k in
                    ("sann_table_scatter", "batch_score_topk")},
                 **{k: kde_run["launches"][k] for k in
                    ("race_hist", "swakde_segment_pass")},
                 "srp_hash": srp_run["launches"]["srp_hash"],
-                "cand_score": oracle_launches["cand_score"]}
+                "cand_score": oracle_launches["cand_score"],
+                "sketch_decode_attn": serve_run["launches"]["sketch_decode_attn"]}
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -1213,16 +1592,19 @@ def main(argv=None) -> int:
             *check_cand_score(sann_run, device),
             *check_batch_score_topk(sann_run, device),
             check_swakde_segment_pass(kde_run, device),
-            check_sann_table_scatter(sann_run, device)]
+            check_sann_table_scatter(sann_run, device),
+            *check_sketch_decode_attn(serve_run, device)]
     for row in rows:
         emit({"phase": "kernel_check", **row})
-    phase_profile(sann_run, kde_run, srp_run, device)
+    phase_profile(sann_run, kde_run, srp_run, serve_run, device)
     summary = []
     for row in rows:
         if row["name"] == "batch_score_topk" and row["shape"][-1] == 1:
             continue        # the (c, r) shape; reported in its kernel_check line
         if row["name"] == "cand_score" and row["shape"][0] == 3 * sann_run["cfg"].L:
             continue        # the 3L shape; reported in its kernel_check line
+        if row["name"] == "sketch_decode_attn" and row["case"] != "lm_serve":
+            continue        # the long-context shapes; in their kernel_check lines
         summary.append({
             "name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],

@@ -8,7 +8,12 @@ values on ``device`` as the port's tensors.  `to_numpy` goes back.
 
 The reference's uint32 ``mix`` multipliers and threefry keys become int64
 tensors holding the same values; every other leaf keeps its dtype (int32,
-float32, bool).
+float32, bfloat16, bool).
+
+The language model's parameters and KV cache travel as the reference's
+nested dicts (``jax.tree.map(np.asarray, params)``): `lm_params_from_numpy`
+builds the port's `models.model.ParamTree`, `lm_cache_from_numpy` and
+`lm_cache_to_numpy` carry a cache both ways.
 """
 from __future__ import annotations
 
@@ -24,10 +29,14 @@ from .core.race import RACEState
 from .core.sann import SANNState
 from .core.swakde import BatchSWAKDEState, SWAKDEState
 from .core.util import resolve_device
+from .models.model import ParamTree
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(x).to(device)
 
 
 def _mix(x, device) -> torch.Tensor:
@@ -97,4 +106,35 @@ def to_numpy(obj) -> dict:
             if name == "mix":
                 value = value.astype(np.uint32)
         out[name] = value
+    return out
+
+
+def _tree(d: Mapping[str, Any], device) -> dict:
+    return {k: _tree(v, device) if isinstance(v, Mapping) else _tensor(v, device)
+            for k, v in d.items()}
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> ParamTree:
+    """The reference's ``init_model`` pytree (nested dicts of numpy arrays)
+    → the port's parameter tree on ``device``, leaf for leaf."""
+    return ParamTree(_tree(tree, resolve_device(device)))
+
+
+def lm_cache_from_numpy(cache: Mapping[str, Any], device="cuda") -> dict:
+    """A reference decode cache (``k``, ``v``, ``block_sigs``, 0-d
+    ``length``) → the port's cache (``length`` a Python int)."""
+    device = resolve_device(device)
+    return {k: int(v) if k == "length" else _tensor(v, device)
+            for k, v in cache.items()}
+
+
+def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict:
+    """A port cache → dict of numpy arrays (bfloat16 leaves as float32,
+    which holds them exactly) and ``length`` as an int."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        out[k] = v
     return out

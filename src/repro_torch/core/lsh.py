@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .util import resolve_device
+from .util import fp32_reciprocal, resolve_device
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import fold
 
@@ -92,14 +92,6 @@ def srp_hash(params: SRPParams, x: torch.Tensor) -> torch.Tensor:
     codes = kernel_ops.srp_hash(flat, params.proj, params.mix,
                                 params.n_buckets)
     return codes.reshape(*x.shape[:-1], params.L)
-
-
-def fp32_reciprocal(w: float) -> float:
-    """``float32(1) / float32(w)``, as a Python float.  The value is exact in
-    fp32, so a float32 tensor times it is one fp32 multiply on every device,
-    and as a scalar operand it costs the card no host-to-device copy."""
-    one = torch.tensor(1.0, dtype=torch.float32)
-    return float(one / torch.tensor(w, dtype=torch.float32))
 
 
 def pstable_hash(params: PStableParams, x: torch.Tensor) -> torch.Tensor:

@@ -21,18 +21,23 @@ from __future__ import annotations
 
 import torch
 
+from .util import resolve_device
+
 _MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
     """The key ``jax.random.PRNGKey(seed)`` gives for a seed in [0, 2^32)
-    (JAX's default 32-bit mode): ``(0, seed)`` as a ``(2,)`` int64 tensor."""
+    (JAX's default 32-bit mode): ``(0, seed)`` as a ``(2,)`` int64 tensor.
+    Like every allocating entry point it defaults to the card and raises
+    without one; pass ``device="cpu"`` for the plain path."""
     seed = int(seed)
     if not 0 <= seed <= _MASK32:
         raise ValueError("PRNGKey: seed must lie in [0, 2^32)")
-    return torch.tensor([0, seed], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:

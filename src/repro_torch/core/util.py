@@ -31,6 +31,15 @@ def mean_last(x: torch.Tensor) -> torch.Tensor:
     return x.sum(-1) * x.new_full((), 1.0 / x.shape[-1])
 
 
+def fp32_reciprocal(w: float) -> float:
+    """``float32(1) / float32(w)``, as a Python float.  The value is exact in
+    fp32, so a float32 tensor times it is one fp32 multiply on every device,
+    and as a scalar operand it costs the card no host-to-device copy.  XLA
+    compiles the reference's division by a constant this way."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return float(one / torch.tensor(w, dtype=torch.float32))
+
+
 def resolve_device(device) -> torch.device:
     """The device an allocating entry point will use.  A CUDA device without
     a card raises: the port never drops to the CPU on its own."""

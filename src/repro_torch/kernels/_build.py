@@ -6,7 +6,8 @@ calls `lib()`, which compiles every ``csrc/*.cu`` for ``sm_90a`` with
 into ``build/repro_torch/`` at the root of the checkout, keyed by a hash of
 the sources and flags, and loads the shared library with ``ctypes``.  The
 library has a plain C interface: pointers and the stream travel as
-``ctypes.c_void_p``, sizes as ``ctypes.c_int``, and every entry returns
+``ctypes.c_void_p``, sizes as ``ctypes.c_int``, scalars of the arithmetic
+as ``ctypes.c_float``, and every entry returns
 ``cudaGetLastError()`` after its launch, which `launch` turns into an
 exception.
 
@@ -34,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # C entry points: name → argtypes (every pointer and the stream as c_void_p).
 SIGNATURES = {
     "race_hist_launch": [P, P, I, I, I, P],
@@ -43,10 +45,12 @@ SIGNATURES = {
                                    I, I, I, I, I, I, I, I, I, P],
     "cand_score_launch": [P, P, P, I, I, P],
     "srp_hash_launch": [P, P, P, P, I, I, I, I, I, P],
+    "sketch_decode_attn_launch": [P] * 8 + [I] * 11 + [F] * 3 + [P],
 }
 
 LAUNCHES = {"race_hist": 0, "sann_table_scatter": 0, "batch_score_topk": 0,
-            "swakde_segment_pass": 0, "cand_score": 0, "srp_hash": 0}
+            "swakde_segment_pass": 0, "cand_score": 0, "srp_hash": 0,
+            "sketch_decode_attn": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
@@ -126,12 +130,13 @@ def lib() -> ctypes.CDLL:
 
 def launch(name: str, entry: str, *args) -> None:
     """Call C entry ``entry`` with ``args`` (tensors become device pointers,
-    ints stay ints) on the current stream, raise on a CUDA error, and count
-    one launch of kernel ``name``."""
+    floats stay floats, anything else becomes an int) on the current stream,
+    raise on a CUDA error, and count one launch of kernel ``name`` (an entry
+    that launches several kernels counts once)."""
     fn = getattr(lib(), entry)
     stream = torch.cuda.current_stream().cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-            for a in args]
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else a if isinstance(a, float) else int(a) for a in args]
     err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -1,4 +1,4 @@
-"""Public wrappers for the six CUDA kernels.
+"""Public wrappers for the seven CUDA kernels.
 
 Dispatch (single source of truth: `dispatch.py`): a CUDA tensor launches
 the hand-written kernel, a CPU tensor runs the plain version in `ref`.
@@ -15,6 +15,7 @@ from . import cand_score as _cs
 from . import ingest_commit as _ic
 from . import race_update as _ru
 from . import ref
+from . import sketch_decode_attn as _sda
 from . import srp_hash as _sh
 from .dispatch import use_kernel
 
@@ -77,3 +78,19 @@ def sann_table_scatter(tables, table_ptr, s_l, s_c, rank, val, mask):
     fn = _ic.sann_table_scatter if use_kernel(tables) \
         else ref.sann_table_scatter_ref
     return fn(tables, table_ptr, s_l, s_c, rank, val, mask)
+
+
+def sketch_decode_attn(q, k, v, block_ids, n_live, kv_len,
+                       block_size: int = 512, softcap: float = 0.0):
+    """Sketch-pruned decode attention over the first ``n_live`` entries of
+    ``block_ids`` (see `_sda.sketch_decode_attn` for the shapes, batched or
+    the reference's unbatched form) → fp32 of ``q``'s shape.  On the CPU the
+    live list becomes a block mask for `ref.sketch_decode_attn_ref`."""
+    if use_kernel(k):
+        return _sda.sketch_decode_attn(q, k, v, block_ids, n_live, kv_len,
+                                       block_size, softcap)
+    batched = block_ids.dim() == 2
+    live = _sda.block_mask(block_ids if batched else block_ids[None], n_live,
+                           k.shape[-3] // block_size)
+    return ref.sketch_decode_attn_ref(q, k, v, live if batched else live[0],
+                                      kv_len, block_size, softcap)

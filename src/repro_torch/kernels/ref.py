@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the six CUDA kernels.
+"""Plain PyTorch versions of the seven CUDA kernels.
 
 Each function is the semantic definition of its kernel (ported from the
 reference's ``kernels/ref.py``).  On a CPU tensor `ops` runs these; on the
@@ -8,6 +8,8 @@ against its plain version on the same inputs.
 from __future__ import annotations
 
 import torch
+
+from ..core.util import fp32_reciprocal
 
 _INT32_MAX = 2**31 - 1
 # Golden-ratio multiplicative constant for multiply-shift hashing.
@@ -228,3 +230,33 @@ def sann_table_scatter_ref(
     flat = (s_l * NB + s_c) * cap + ring_pos
     tables.view(-1)[flat[mask]] = val[mask].to(tables.dtype)
     return tables
+
+
+def sketch_decode_attn_ref(
+    q: torch.Tensor,            # ([B,] Hkv, G, dh) fp32 or bf16
+    k: torch.Tensor,            # ([B,] S, Hkv, dh)
+    v: torch.Tensor,            # ([B,] S, Hkv, dh)
+    block_live: torch.Tensor,   # ([B,] num_blocks) bool — sketch-pruned blocks
+    kv_len,                     # int (or 0-d / (1,) tensor) — valid positions
+    block_size: int,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Masked decode attention: softmax over the positions whose block
+    survives the sketch pruning and that lie below ``kv_len``, of
+    ``(q . k) / sqrt(dh)`` (softcapped when ``softcap > 0``), times v.
+    Returns fp32 of ``q``'s shape; a row with no position gets zeros.
+    Takes the reference's unbatched form or a leading batch axis."""
+    if q.dim() == 3:
+        return sketch_decode_attn_ref(q[None], k[None], v[None], block_live[None],
+                                      kv_len, block_size, softcap)[0]
+    S, dh = k.shape[1], q.shape[-1]
+    scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * dh ** -0.5
+    if softcap and softcap > 0.0:
+        scores = softcap * torch.tanh(scores * fp32_reciprocal(softcap))
+    pos = torch.arange(S, device=k.device)
+    live = block_live[:, pos // block_size] & (pos < kv_len)         # (B, S)
+    scores = torch.where(live[:, None, None, :], scores, float("-inf"))
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    w = e / e.sum(-1, keepdim=True)
+    w = torch.where(torch.isnan(w), 0.0, w)   # all-masked rows → zero output
+    return torch.einsum("bhgs,bshd->bhgd", w, v.float())

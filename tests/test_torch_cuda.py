@@ -10,13 +10,17 @@ Shapes here are small and chosen for edge cases the main path does not
 reach: a histogram wider than shared memory, k = 64, d not a multiple of
 32, ties, fully masked rows, capped segment passes, unaligned rows, hash
 rows split across blocks.  `cand_score` and `srp_hash` also run at their
-main-path shapes.
+main-path shapes.  `sketch_decode_attn` runs at the serve step's smoke
+shapes and at one long shape (S = 131 072, gemma3-4b's heads), with an
+empty live list, a ragged kv_len inside a block and more splits than live
+tiles; it agrees with its plain version within 2e-5 (fp32 sums in another
+order, the reference kernel's own bound).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import (batch_score, cand_score, ingest_commit, ops,
-                                 race_update, ref, srp_hash)
+                                 race_update, ref, sketch_decode_attn, srp_hash)
 
 pytestmark = pytest.mark.cuda
 
@@ -191,9 +195,84 @@ def test_pstable_scalar_reciprocal_is_one_fp32_multiply_on_the_card(dev, w):
 
 def test_keep_draws_are_bit_identical_on_the_card(dev):
     from repro_torch.core import prng, sann
-    key = prng.fold_in(prng.PRNGKey(7), 3)
+    key = prng.fold_in(prng.PRNGKey(7, device="cpu"), 3)
     for n in (1, 4096):
         keys = sann.sann_row_keys(key.to(dev), n)
         assert torch.equal(keys.cpu(), sann.sann_row_keys(key, n))
         assert torch.equal(prng.bernoulli(keys, 0.3).cpu(),
                            prng.bernoulli(keys.cpu(), 0.3))
+
+
+def _sda_case(dev, B, Hkv, G, dh, S, bs, frac, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hkv, G, dh), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(dtype)
+    live = torch.rand((B, S // bs), generator=g, device=dev) < frac
+    ids, n_live = sketch_decode_attn.compact_live(live)
+    return q, k, v, live, ids, n_live
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,S,bs,frac,kv_len,softcap,dtype", [
+    (2, 2, 2, 16, 1024, 512, 1.0, 604, 0.0, torch.float32),      # gemma3 smoke
+    (2, 2, 2, 16, 1024, 512, 0.5, 604, 50.0, torch.float32),     # gemma2 smoke
+    (3, 2, 4, 64, 1024, 128, 0.5, 900, 20.0, torch.float32),
+    (1, 1, 8, 32, 512, 64, 1.0, 100, 0.0, torch.float32),
+    (4, 4, 2, 256, 4096, 512, 0.6, 1000, 0.0, torch.bfloat16),    # lm_serve
+    (1, 4, 2, 256, 131_072, 512, 0.5, 131_000, 50.0, torch.bfloat16),
+])
+def test_sketch_decode_attn_kernel_matches_plain(dev, B, Hkv, G, dh, S, bs, frac,
+                                                 kv_len, softcap, dtype):
+    q, k, v, live, ids, n_live = _sda_case(dev, B, Hkv, G, dh, S, bs, frac,
+                                           dtype, S + G)
+    got = sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
+                                                bs, softcap)
+    want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, bs, softcap)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    # the reference's unbatched form, request by request, in bf16 q as well
+    for b in range(min(B, 2)):
+        one = sketch_decode_attn.sketch_decode_attn(
+            q[b].to(dtype), k[b], v[b], ids[b], n_live[b:b + 1],
+            torch.tensor([kv_len], device=dev), bs, softcap)
+        plain = ref.sketch_decode_attn_ref(q[b].to(dtype), k[b], v[b], live[b],
+                                           kv_len, bs, softcap)
+        torch.testing.assert_close(one, plain, rtol=2e-5, atol=2e-5)
+
+
+def test_sketch_decode_attn_edge_cases(dev, monkeypatch):
+    q, k, v, live, ids, n_live = _sda_case(dev, 3, 2, 2, 64, 1024, 64, 0.5,
+                                           torch.float32, 7)
+    # an empty live list gives zeros; request 1 has none
+    live[1] = False
+    ids, n_live = sketch_decode_attn.compact_live(live)
+    for kv_len in (1, 37, 65, 700, 1024):          # ragged inside a block
+        got = sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live,
+                                                    kv_len, 64, 0.0)
+        want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, 64, 0.0)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        assert not got[1].any()
+    # more splits than live tiles: the idle splits add nothing
+    few = torch.zeros_like(live)
+    few[:, 3] = True
+    ids, n_live = sketch_decode_attn.compact_live(few)
+    for n_split in (1, 2, 16, 256):
+        monkeypatch.setattr(sketch_decode_attn, "default_n_split",
+                            lambda *shape, n=n_split: n)
+        got = sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, 1024,
+                                                    64, 0.0)
+        torch.testing.assert_close(
+            got, ref.sketch_decode_attn_ref(q, k, v, few, 1024, 64, 0.0),
+            rtol=2e-5, atol=2e-5)
+    monkeypatch.undo()
+    ops.reset_launches()
+    ops.sketch_decode_attn(q, k, v, ids, n_live, 1024, 64)
+    ops.sketch_decode_attn(q.cpu(), k.cpu(), v.cpu(), ids.cpu(), n_live.cpu(),
+                           1024, 64)                 # plain version: no count
+    assert ops.LAUNCHES["sketch_decode_attn"] == 1
+    with pytest.raises(ValueError):                  # S not a multiple
+        sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, 1024, 100)
+    with pytest.raises(ValueError):
+        sketch_decode_attn.sketch_decode_attn(q, k.half(), v.half(), ids, n_live,
+                                              1024, 64)
+    with pytest.raises(ValueError):
+        sketch_decode_attn.sketch_decode_attn(q, k, v, ids.long(), n_live, 1024, 64)

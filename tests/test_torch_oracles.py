@@ -46,20 +46,20 @@ def sann_built():
         jax.random.PRNGKey(3), cfg_j)
     st_t = tsann.sann_insert_stream(tsann.sann_empty_state(cfg_t, "cpu"),
                                     params_t, torch.from_numpy(xs),
-                                    prng.PRNGKey(3), cfg_t)
+                                    prng.PRNGKey(3, device="cpu"), cfg_t)
     return cfg_j, cfg_t, params_j, params_t, xs, st_j, st_t
 
 
 def test_sann_insert_stream_matches_reference_with_eviction(sann_built):
     cfg_j, cfg_t, _, params_t, xs, st_j, st_t = sann_built
     assert_state_equal(st_t, st_j)
-    kept = int(prng.bernoulli(tsann.sann_row_keys(prng.PRNGKey(3), 200),
+    kept = int(prng.bernoulli(tsann.sann_row_keys(prng.PRNGKey(3, device="cpu"), 200),
                               cfg_t.keep_prob).sum())
     assert kept > cfg_t.capacity and int(st_t.n_stored) == cfg_t.capacity
     # the batched path under the same key is bit-identical
     batch = tsann.sann_insert_batch(tsann.sann_empty_state(cfg_t, "cpu"),
                                     params_t, torch.from_numpy(xs),
-                                    prng.PRNGKey(3), cfg_t)
+                                    prng.PRNGKey(3, device="cpu"), cfg_t)
     assert_state_equal(batch, st_t)
 
 
@@ -82,7 +82,7 @@ def test_sann_insert_chunked_matches_reference(sann_built):
         jax.random.PRNGKey(5), cfg_j, 64)
     got = tsann.sann_insert_chunked(tsann.sann_empty_state(cfg_t, "cpu"),
                                     params_t, torch.from_numpy(xs),
-                                    prng.PRNGKey(5), cfg_t, chunk=64)
+                                    prng.PRNGKey(5, device="cpu"), cfg_t, chunk=64)
     assert_state_equal(got, ref)
 
 

@@ -31,7 +31,7 @@ def test_jax_threefry_is_partitionable():
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_fold_in_split_match_jax(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, device="cpu")
     np.testing.assert_array_equal(kt.numpy(), _u32(kj))
     for i in (0, 1, 5, 1000, 2**31 + 3):
         np.testing.assert_array_equal(prng.fold_in(kt, i).numpy(),
@@ -82,11 +82,11 @@ def test_prepare_chunk_keep_matches_reference_without_injection():
     for seed in (1, 9):
         pj = prep(params_j, jnp.asarray(xs), jax.random.PRNGKey(seed), cfg_j)
         pt = tsann.sann_prepare_chunk(params_t, torch.from_numpy(xs),
-                                      prng.PRNGKey(seed), cfg_t)
+                                      prng.PRNGKey(seed, device="cpu"), cfg_t)
         np.testing.assert_array_equal(pt.keep.numpy(), np.asarray(pj.keep))
         np.testing.assert_array_equal(pt.kept_rank.numpy(),
                                       np.asarray(pj.kept_rank))
         assert 0 < int(pt.n_kept) < 300
         short = tsann.sann_prepare_chunk(params_t, torch.from_numpy(xs[:77]),
-                                         prng.PRNGKey(seed), cfg_t)
+                                         prng.PRNGKey(seed, device="cpu"), cfg_t)
         assert torch.equal(short.keep, pt.keep[:77])

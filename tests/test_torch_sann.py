@@ -168,7 +168,7 @@ def test_insert_chunked_is_prepare_then_commit(built):
     the same as preparing and committing chunk by chunk under those keys."""
     *_, cfg_t, params_t, _, xs = built
     flat = torch.from_numpy(xs.reshape(-1, xs.shape[-1]))
-    key = prng.PRNGKey(3)
+    key = prng.PRNGKey(3, device="cpu")
     a = tsann.sann_insert_chunked(tsann.sann_empty_state(cfg_t, "cpu"), params_t,
                                   flat, key, cfg_t, chunk=100)
     b = tsann.sann_empty_state(cfg_t, "cpu")
@@ -191,7 +191,7 @@ def test_keep_fraction_within_6_sigma():
                                     device="cpu")
     n = 20_000
     prep = tsann.sann_prepare_chunk(params, torch.zeros(n, 2),
-                                    prng.PRNGKey(5), cfg)
+                                    prng.PRNGKey(5, device="cpu"), cfg)
     p = cfg.keep_prob
     frac = float(prep.keep.float().mean())
     assert abs(frac - p) <= 6 * (p * (1 - p) / n) ** 0.5

@@ -6,8 +6,9 @@ keys.  A short S-ANN stream and a short SW-AKDE + RACE stream run through
 both packages, and the final states and query answers agree: integer state
 bit-exact, estimates equal, distances within (1e-5, 1e-6).
 
-Also: the port imports neither jax nor the reference package, and its
-allocating entry points default to the card and raise without one.
+Also: the port (every subpackage, and chip_smoke.py) imports neither jax
+nor the reference package, and its allocating entry points default to the
+card and raise without one.
 """
 import os
 import re
@@ -128,8 +129,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 
 def test_port_source_imports_neither_jax_nor_reference():
-    files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 14
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent.parent / "chip_smoke.py"]
+    assert len(files) >= 30
+    packages = {f.parent.name for f in files}
+    assert {"core", "kernels", "configs", "models", "serve"} <= packages
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
 
@@ -156,3 +159,11 @@ def test_allocating_entry_points_raise_without_a_card():
         tswakde.swakde_init(tswakde.SWAKDEConfig(L=2, W=4, window=8, eh_eps=0.5))
     with pytest.raises(RuntimeError, match="CUDA"):
         trace.race_init(2, 4)
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.serve import kv_cache
+    lm = registry.get_smoke_config("gemma3-4b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_model(lm, g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kv_cache.init_cache(lm, 1, 512, sketch=True)
