@@ -43,7 +43,8 @@ same codes, and with keep masks the CPU draws itself from the same key, and
 must give bit-identical state.  Then every kernel is held against its plain
 PyTorch version on the card at the main path's shapes and timed beside it
 (and beside the one PyTorch call that computes the same function, where
-there is one).
+there is one; for the S-ANN table commit, beside the plain PyTorch
+sequence it replaced).
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -162,7 +163,9 @@ def time_ms(fn, iters: int, device, warmup: int = 2) -> float:
 
 
 KERNEL_SYMBOLS = {"race_hist": "race_hist_smem",
-                  "sann_table_scatter": "sann_table_scatter_kernel",
+                  # the commit's both launches: the tombstone copy and the
+                  # append (`sann_table_scatter_kernel`)
+                  "sann_table_scatter": "sann_table_scatter_",
                   "batch_score_topk": "batch_score_topk_kernel",
                   "swakde_segment_pass": "swakde_segment_pass_kernel",
                   "cand_score": "cand_score_kernel",
@@ -194,6 +197,21 @@ def device_ms(fn, name: str, device, iters: int = 20):
         sync(device)
     us = sum(_device_us(e) for e in prof.key_averages()
              if KERNEL_SYMBOLS[name] in e.key)
+    return us / iters / 1e3 if us else None
+
+
+def device_ms_all(fn, device, iters: int = 20):
+    """Mean device time per call of ``fn()``, summed over every kernel and
+    copy it runs (a yardstick's own device time), from torch.profiler;
+    None if the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync(device)
+    us = sum(_device_us(e) for e in prof.key_averages())
     return us / iters / 1e3 if us else None
 
 
@@ -1167,6 +1185,13 @@ def check_race_hist(kde, device):
 
 
 def check_sann_table_scatter(sann_run, device):
+    """The in-place ring append (`ingest_commit.sann_table_scatter`) and the
+    commit's table update (`ingest_commit.sann_table_commit`: the tombstone
+    copy, then the append), each bit-equal to its plain version on a chunk
+    of queries prepared against the ingested SIFT1M-shaped state; the commit
+    also with its ring interval wrapping past capacity and with n_kept past
+    capacity.  Returns the append's row and the commit's (the main path's
+    entry), timed beside the plain PyTorch sequence the commit replaced."""
     import torch
     from repro_torch.core import sann
     from repro_torch.kernels import ingest_commit, ref
@@ -1191,18 +1216,67 @@ def check_sann_table_scatter(sann_run, device):
     E, n_masked = prep.s_l.shape[0], int(m.sum())
     tab_k, tab_r, tab_l = (state.tables.clone() for _ in range(3))
     b_ms, b_by = bound(E * 17 + n_masked * 8)
-    return {"name": "sann_table_scatter", "shape": [L, NB, cap, E],
-            "masked": n_masked, "max_abs_err": err,
-            "ms": time_ms(lambda: ingest_commit.sann_table_scatter(tab_k, *args),
-                          50, device),
-            "device_ms": device_ms(lambda: ingest_commit.sann_table_scatter(
-                tab_k, *args), "sann_table_scatter", device),
-            "plain_ms": time_ms(lambda: ref.sann_table_scatter_ref(tab_r, *args),
-                                20, device),
-            "library_ms": time_ms(lambda: tab_l.view(-1).index_put_(
-                (flat,), vals), 50, device),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library": "Tensor.index_put_"}
+    scatter = {
+        "name": "sann_table_scatter", "entry": "sann_table_scatter",
+        "shape": [L, NB, cap, E], "masked": n_masked, "max_abs_err": err,
+        "ms": time_ms(lambda: ingest_commit.sann_table_scatter(tab_k, *args),
+                      50, device),
+        "device_ms": device_ms(lambda: ingest_commit.sann_table_scatter(
+            tab_k, *args), "sann_table_scatter", device),
+        "plain_ms": time_ms(lambda: ref.sann_table_scatter_ref(tab_r, *args),
+                            20, device),
+        "library_ms": time_ms(lambda: tab_l.view(-1).index_put_(
+            (flat,), vals), 50, device),
+        "bound_ms": b_ms, "bound_by": b_by, "library": "Tensor.index_put_"}
+    del tab_k, tab_r, tab_l
+
+    C = cfg.capacity
+    tables = state.tables
+    before = tables.clone()
+    wp, nk = state.write_ptr, prep.n_kept
+    n_kept = int(nk)
+    i32 = dict(dtype=torch.int32, device=device)
+    cases = {"main": (wp, nk),
+             "wrap": (torch.tensor(C - max(n_kept // 2, 1), **i32), nk),
+             "n_kept_past_capacity": (wp, torch.tensor(C + 5, **i32))}
+    for name, (w, n) in cases.items():
+        got = ingest_commit.sann_table_commit(tables, *args, w, n, C)
+        want = ref.sann_table_commit_ref(tables, *args, w, n, C)
+        if not torch.equal(got, want):
+            fail(f"sann_table_commit differs from its plain version ({name})")
+    if not torch.equal(tables, before):
+        fail("sann_table_commit modified its input tables")
+    del got, want, before
+
+    def pytorch_sequence():
+        # the table update before the fused entry: a masked tombstone pass
+        # over the whole table, then the append
+        ring_off = (torch.arange(C, **i32) - wp) % C
+        overwritten = ring_off < nk
+        stale = (tables >= 0) & overwritten[tables.clamp(min=0).long()]
+        out = torch.where(stale, -1, tables)
+        out.view(-1).index_put_((flat,), vals)
+        return out
+
+    if not torch.equal(pytorch_sequence(), ingest_commit.sann_table_commit(
+            tables, *args, wp, nk, C)):
+        fail("sann_table_commit differs from the PyTorch sequence")
+    commit = lambda: ingest_commit.sann_table_commit(tables, *args, wp, nk, C)
+    b_ms, b_by = bound(2 * tables.numel() * 4 + E * 17 + n_masked * 4 + 8)
+    return [scatter, {
+        "name": "sann_table_scatter", "entry": "sann_table_commit",
+        "shape": [L, NB, cap, E], "masked": n_masked, "n_kept": n_kept,
+        "capacity": C, "cases": list(cases), "max_abs_err": 0,
+        "table_bytes": tables.numel() * 4,
+        "ms": time_ms(commit, 20, device),
+        "device_ms": device_ms(commit, "sann_table_scatter", device),
+        "plain_ms": time_ms(lambda: ref.sann_table_commit_ref(
+            tables, *args, wp, nk, C), 5, device),
+        "library_ms": time_ms(pytorch_sequence, 20, device),
+        "library_device_ms": device_ms_all(pytorch_sequence, device),
+        "library": "PyTorch sequence: (tables >= 0) & overwritten[tables."
+                   "clamp(min=0).long()], torch.where, Tensor.index_put_",
+        "bound_ms": b_ms, "bound_by": b_by}]
 
 
 def topk_err(d_k, i_k, d_r, i_r, full_d2):
@@ -1424,13 +1498,15 @@ def check_sketch_decode_attn(serve_run, device):
         b_ms, b_by = bound(nbytes, 4.0 * n_pos * Hkv * G * dh)
         call = lambda: sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
                                               LM_BLOCK, softcap)
-        library_ms = None
+        library_ms = library_device_ms = None
         if softcap == 0.0 and n_pos:
             ql = q.reshape(B, Hkv * G, 1, dh)
             kl, vl = k.transpose(1, 2), v.transpose(1, 2)
             mask = pos_live[:, None, None, :]
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=mask, enable_gqa=True), 10, device)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True)
+            library_ms = time_ms(sdpa, 10, device)
+            library_device_ms = device_ms_all(sdpa, device, 10)
         rows.append({
             "name": "sketch_decode_attn", "case": name,
             "shape": [B, S, Hkv, G, dh], "kv_len": kv_len, "softcap": softcap,
@@ -1440,7 +1516,7 @@ def check_sketch_decode_attn(serve_run, device):
             "device_ms": device_ms(call, "sketch_decode_attn", device),
             "plain_ms": time_ms(lambda: ref.sketch_decode_attn_ref(
                 q, k, v, live, kv_len, LM_BLOCK, softcap), 3, device),
-            "library_ms": library_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
             "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
                        "over the whole cache",
             "bound_ms": b_ms, "bound_by": b_by})
@@ -1592,7 +1668,7 @@ def main(argv=None) -> int:
             *check_cand_score(sann_run, device),
             *check_batch_score_topk(sann_run, device),
             check_swakde_segment_pass(kde_run, device),
-            check_sann_table_scatter(sann_run, device),
+            *check_sann_table_scatter(sann_run, device),
             *check_sketch_decode_attn(serve_run, device)]
     for row in rows:
         emit({"phase": "kernel_check", **row})
@@ -1605,6 +1681,9 @@ def main(argv=None) -> int:
             continue        # the 3L shape; reported in its kernel_check line
         if row["name"] == "sketch_decode_attn" and row["case"] != "lm_serve":
             continue        # the long-context shapes; in their kernel_check lines
+        if row.get("entry") == "sann_table_scatter":
+            continue        # the in-place append alone; the main path's entry
+                            # is the commit (`sann_table_commit`)
         summary.append({
             "name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
@@ -1612,7 +1691,8 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"], "shape": row["shape"],
-            **{k: row[k] for k in ("flips_at_sign_boundaries", "codes")
+            **{k: row[k] for k in ("flips_at_sign_boundaries", "codes",
+                                   "entry", "library", "library_device_ms")
                if k in row}})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,10 @@ Ingest paths:
 * `sann_prepare_chunk` / `sann_commit_chunk` — the two-phase batched form
   (DESIGN.md §10): prepare is the pure half (keep decisions, prefix ranks,
   hashing, the sort-by-(row, code) append structure), commit rebases it on
-  the live pointers, with the ring appends done by the `sann_table_scatter`
-  kernel.  `sann_insert_batch` is their composition and is bit-identical
-  to `sann_insert_stream` under the same key.
+  the live pointers, with the tombstone pass and the ring appends done by
+  `ops.sann_table_commit` (the `sann_table_scatter` kernel).
+  `sann_insert_batch` is their composition and is bit-identical to
+  `sann_insert_stream` under the same key.
 
 Query paths: `sann_query` / `sann_query_topk` score one query's candidates
 with the `cand_score` kernel (the oracles); `sann_query_batch` /
@@ -28,9 +29,8 @@ points in both packages and the schedule is prefix-stable.  Parameters are
 drawn from a ``torch.Generator`` (`lsh.init_pstable`); parity tests carry
 the reference's parameters across instead.
 
-Commits never modify their input state: the tombstone pass makes a new
-tables tensor and the ring append writes into it in place.  The per-point
-`sann_insert` likewise returns new tensors.
+Commits never modify their input state: the table commit writes a new
+tables tensor.  The per-point `sann_insert` likewise returns new tensors.
 """
 from __future__ import annotations
 
@@ -273,10 +273,10 @@ def sann_commit_chunk(state: SANNState, prep: SANNPrep, cfg: SANNConfig,
 
       1. slots = write_ptr + prepared ranks (mod capacity); point-store and
          stamp scatters for the winners;
-      2. stale table entries pointing at slots recycled this chunk are
-         tombstoned in one masked pass (into a new tables tensor);
-      3. ring appends land at (table_ptr + rank) % bucket_cap through the
-         `sann_table_scatter` kernel, in place on that new tensor.
+      2. one `ops.sann_table_commit` call writes the new tables: the old
+         ones with every entry pointing at a slot recycled this chunk
+         tombstoned, then the ring appends at
+         (table_ptr + rank) % bucket_cap.
 
     ``count`` (optional) overrides the stream-clock advance (default B)."""
     B = prep.xs.shape[0]
@@ -291,16 +291,13 @@ def sann_commit_chunk(state: SANNState, prep: SANNPrep, cfg: SANNConfig,
     overwritten = ring_off < prep.n_kept
     valid = state.valid | overwritten
 
-    # --- tombstone stale references to every slot recycled this chunk ------
-    stale = (state.tables >= 0) & overwritten[state.tables.clamp(min=0).long()]
-    tables = torch.where(stale, -1, state.tables)
-
-    # --- ring-buffer appends (kernel, in place on the fresh tables) --------
+    # --- tombstone stale references to recycled slots, then the ring
+    # appends, into a new tables tensor (one kernel entry) -----------------
     s_b = prep.s_b.long()
     val = torch.where(prep.winner[s_b], slot[s_b], -1).to(_I32)
-    tables = kernel_ops.sann_table_scatter(
-        tables, state.table_ptr, prep.s_l, prep.s_c, prep.rank, val,
-        prep.entry_win)
+    tables = kernel_ops.sann_table_commit(
+        state.tables, state.table_ptr, prep.s_l, prep.s_c, prep.rank, val,
+        prep.entry_win, state.write_ptr, prep.n_kept, cap)
     table_ptr = state.table_ptr + prep.counts
 
     # Logical arrival stamps: point i arrived at stream time n_seen + i.

@@ -12,7 +12,8 @@ as ``ctypes.c_float``, and every entry returns
 exception.
 
 `LAUNCHES` counts kernel launches per kernel name; `launch` is the only
-place that adds to it.
+place that adds to it.  Each C entry is resolved once and its function
+object kept, so a launch costs one ctypes call.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ F = ctypes.c_float
 SIGNATURES = {
     "race_hist_launch": [P, P, I, I, I, P],
     "sann_table_scatter_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
+    "sann_table_commit_launch": [P, P, P, P, P, P, P, P, P, P,
+                                 I, I, I, I, I, P],
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
     "swakde_segment_pass_launch": [P, P, P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, I, P],
@@ -53,6 +56,7 @@ LAUNCHES = {"race_hist": 0, "sann_table_scatter": 0, "batch_score_topk": 0,
             "sketch_decode_attn": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
+_ENTRIES: dict = {}
 BUILD_INFO: dict = {}
 
 
@@ -128,15 +132,18 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, entry: str, *args) -> None:
-    """Call C entry ``entry`` with ``args`` (tensors become device pointers,
-    floats stay floats, anything else becomes an int) on the current stream,
-    raise on a CUDA error, and count one launch of kernel ``name`` (an entry
-    that launches several kernels counts once)."""
-    fn = getattr(lib(), entry)
-    stream = torch.cuda.current_stream().cuda_stream
+def launch(name: str, entry_name: str, *args) -> None:
+    """Call C entry ``entry_name`` with ``args`` (tensors become device
+    pointers, floats stay floats, anything else becomes an int) on the
+    current stream, raise on a CUDA error, and count one launch of kernel
+    ``name`` (an entry that launches several kernels counts once)."""
+    fn = _ENTRIES.get(entry_name)
+    if fn is None:                      # resolved once a process
+        fn = _ENTRIES[entry_name] = getattr(lib(), entry_name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor)
             else a if isinstance(a, float) else int(a) for a in args]
+    # the current stream's handle, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
@@ -144,15 +151,31 @@ def launch(name: str, entry: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _shape_ok(got, want) -> bool:
+    return got == want or (len(got) == len(want) and all(
+        w is None or w == n for w, n in zip(want, got)))
+
+
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     """Wrapper-side argument check: a contiguous CUDA tensor of ``dtype``
     and ``shape`` (``None`` entries match any size)."""
+    if t.is_cuda and t.dtype == dtype and t.is_contiguous() and \
+            _shape_ok(t.shape, shape):
+        return
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if len(t.shape) != len(shape) or any(
-            s is not None and s != n for s, n in zip(shape, t.shape)):
+    if not _shape_ok(t.shape, shape):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_all(name: str, tensors: dict, dtype: torch.dtype, shape) -> None:
+    """`check` for several tensors of one ``dtype`` and ``shape`` in one
+    pass; on a failure, `check` names the tensor at fault."""
+    if all(t.is_cuda and t.dtype == dtype and t.is_contiguous()
+           and _shape_ok(t.shape, shape) for t in tensors.values()):
+        return
+    for key, t in tensors.items():
+        check(f"{name} {key}", t, dtype, shape)

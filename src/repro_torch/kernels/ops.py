@@ -80,6 +80,17 @@ def sann_table_scatter(tables, table_ptr, s_l, s_c, rank, val, mask):
     return fn(tables, table_ptr, s_l, s_c, rank, val, mask)
 
 
+def sann_table_commit(tables, table_ptr, s_l, s_c, rank, val, mask,
+                      write_ptr, n_kept, capacity: int):
+    """The S-ANN commit's table update: tombstone the ids of the slots
+    recycled this chunk, then the ring append (see
+    `ref.sann_table_commit_ref`) → new tables; ``tables`` is not modified."""
+    fn = _ic.sann_table_commit if use_kernel(tables) \
+        else ref.sann_table_commit_ref
+    return fn(tables, table_ptr, s_l, s_c, rank, val, mask, write_ptr,
+              n_kept, capacity)
+
+
 def sketch_decode_attn(q, k, v, block_ids, n_live, kv_len,
                        block_size: int = 512, softcap: float = 0.0):
     """Sketch-pruned decode attention over the first ``n_live`` entries of

@@ -232,6 +232,22 @@ def sann_table_scatter_ref(
     return tables
 
 
+def sann_table_commit_ref(tables, table_ptr, s_l, s_c, rank, val, mask,
+                          write_ptr, n_kept, capacity: int) -> torch.Tensor:
+    """The S-ANN commit's table update → new tables (``tables`` is not
+    modified): every slot id ``v >= 0`` that points at a slot recycled this
+    chunk, i.e. ring offset ``(v - write_ptr) mod capacity < n_kept``, is
+    tombstoned to -1 (an id at or past ``capacity`` reads the offset of slot
+    ``capacity - 1``, the reference's clamped gather), then
+    `sann_table_scatter_ref` appends the chunk into the result."""
+    ring_off = (torch.arange(capacity, dtype=torch.int32, device=tables.device)
+                - write_ptr) % capacity
+    overwritten = ring_off < n_kept
+    stale = (tables >= 0) & overwritten[tables.clamp(0, capacity - 1).long()]
+    out = torch.where(stale, -1, tables)
+    return sann_table_scatter_ref(out, table_ptr, s_l, s_c, rank, val, mask)
+
+
 def sketch_decode_attn_ref(
     q: torch.Tensor,            # ([B,] Hkv, G, dh) fp32 or bf16
     k: torch.Tensor,            # ([B,] S, Hkv, dh)

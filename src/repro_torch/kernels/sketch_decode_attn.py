@@ -3,9 +3,10 @@
 
 Replaces the reference's Pallas ``sketch_decode_attn``
 (``kernels/sketch_decode_attn.py``), which walks one request's live list as
-a sequential grid axis.  Here the list is split over thread blocks and a
-second launch combines the splits; see the source note for the bound and
-the design.  One call launches both kernels and counts as one launch in
+a sequential grid axis.  Here the list is split over thread blocks, each
+streaming its share through a ring of cp.async tiles, and a second launch
+combines the splits; see the source note for the bound and the design.
+One call launches both kernels and counts as one launch in
 ``LAUNCHES["sketch_decode_attn"]``.
 """
 from __future__ import annotations
@@ -18,24 +19,25 @@ import torch
 from . import _build
 from ..core.util import fp32_reciprocal
 
-TILE = 64              # kTile in csrc/sketch_decode_attn.cu
+TILE = 32              # kTile in csrc/sketch_decode_attn.cu
 MAX_G = 8              # kMaxG
-MAX_DH = 512           # kThreads * kMaxCols
+MAX_DH = 512           # kMaxDh
 MAX_SPLIT = 256
-BLOCKS_PER_SM = 4      # target thread blocks per SM when choosing n_split
+BLOCKS_PER_SM = 1      # kBlocksPerSm: resident blocks an SM at dh 256
 
 
 @functools.lru_cache(maxsize=None)
-def _n_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def default_n_split(B: int, Hkv: int, nb_max: int, block_size: int,
                     n_sms: int) -> int:
-    """Splits per (request, KV head): enough thread blocks for
-    ``BLOCKS_PER_SM`` on every SM, at most one a tile of the longest list."""
+    """Splits per (request, KV head): as many thread blocks as fit at once
+    (``BLOCKS_PER_SM`` on every SM, so no second wave), at most one a tile
+    of the longest list."""
     tiles = nb_max * -(-block_size // TILE)
-    want = -(-BLOCKS_PER_SM * n_sms // max(B * Hkv, 1))
+    want = BLOCKS_PER_SM * n_sms // max(B * Hkv, 1)
     return max(1, min(want, tiles, MAX_SPLIT))
 
 
@@ -64,8 +66,8 @@ def sketch_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"sketch_decode_attn k: expected bf16 or fp32, got {k.dtype}")
     _build.check("sketch_decode_attn q", q, q.dtype, (B, Hkv, G, dh))
-    _build.check("sketch_decode_attn k", k, k.dtype, (B, S, Hkv, dh))
-    _build.check("sketch_decode_attn v", v, k.dtype, (B, S, Hkv, dh))
+    _build.check_all("sketch_decode_attn", {"k": k, "v": v}, k.dtype,
+                     (B, S, Hkv, dh))
     _build.check("sketch_decode_attn block_ids", block_ids, torch.int32, (B, nb_max))
     _build.check("sketch_decode_attn n_live", n_live, torch.int32, (B,))
     if not (1 <= G <= MAX_G and 1 <= dh <= MAX_DH):
@@ -74,18 +76,19 @@ def sketch_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if block_size < 1 or S % block_size:
         raise ValueError(f"sketch_decode_attn: S={S} is not a multiple of "
                          f"block_size={block_size}")
-    n_split = default_n_split(B, Hkv, nb_max, block_size, _n_sms(q.device))
-    out = torch.empty((B, Hkv, G, dh), dtype=torch.float32, device=q.device)
+    dev = q.device
+    n_split = default_n_split(B, Hkv, nb_max, block_size, _n_sms(dev.index))
+    out = torch.empty((B, Hkv, G, dh), dtype=torch.float32, device=dev)
     if B * Hkv == 0:
         return out
-    part_ml = torch.empty((B * Hkv, n_split, G, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B * Hkv, n_split, G, dh), dtype=torch.float32,
-                           device=q.device)
+    # one scratch tensor: the splits' accumulators, then their (m, l)
+    n_acc = B * Hkv * n_split * G * dh
+    scratch = torch.empty(n_acc + B * Hkv * n_split * G * 2,
+                          dtype=torch.float32, device=dev)
     softcap = float(softcap)
     inv_softcap = fp32_reciprocal(softcap) if softcap > 0.0 else 0.0
     _build.launch("sketch_decode_attn", "sketch_decode_attn_launch",
-                  q, k, v, block_ids, n_live, part_ml, part_acc, out,
+                  q, k, v, block_ids, n_live, scratch[n_acc:], scratch, out,
                   B, Hkv, G, dh, S, nb_max, kv_len, block_size, n_split,
                   int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
                   dh ** -0.5, softcap, inv_softcap)

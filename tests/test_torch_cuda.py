@@ -13,8 +13,12 @@ rows split across blocks.  `cand_score` and `srp_hash` also run at their
 main-path shapes.  `sketch_decode_attn` runs at the serve step's smoke
 shapes and at one long shape (S = 131 072, gemma3-4b's heads), with an
 empty live list, a ragged kv_len inside a block and more splits than live
-tiles; it agrees with its plain version within 2e-5 (fp32 sums in another
-order, the reference kernel's own bound).
+tiles, and through its cp.async pipeline (bf16 K/V) at dh 64 to 512, G 1
+to 8, live lists shorter than the ring and sketch blocks that are not a
+multiple of its tile; it agrees with its plain version within 2e-5 (fp32
+sums in another order, the reference kernel's own bound) and gives the
+same bits twice.  `sann_table_commit` is bit-equal to its plain version
+with the ring interval wrapping and with n_kept at or past capacity.
 """
 import pytest
 import torch
@@ -58,6 +62,38 @@ def test_sann_table_scatter_kernel_matches_plain(dev):
                                            val, mask)
     want = ref.sann_table_scatter_ref(tables.clone(), ptr, s_l, s_c, rank, val, mask)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 50, 3), (4, 70_000, 8)])
+@pytest.mark.parametrize("write_ptr,n_kept", [(3, 9), (17, 9), (11, 0),
+                                              (5, 20), (5, 33)])
+def test_sann_table_commit_kernel_matches_plain(dev, shape, write_ptr, n_kept):
+    """Capacity 20; slot ids from -1 to past capacity (the clamped read);
+    one entry per (bucket, ring position), -1 for a third (losers).  The
+    first shape leaves a tail of n % 4 ids, the second spans many
+    grid-stride steps."""
+    L, NB, cap = shape
+    C = 20
+    g = torch.Generator(device=dev).manual_seed(write_ptr * 100 + n_kept)
+    tables = torch.randint(-1, C + 4, (L, NB, cap), generator=g, device=dev,
+                           dtype=torch.int32)
+    ptr = torch.randint(0, 30, (L, NB), generator=g, device=dev, dtype=torch.int32)
+    s_l = torch.arange(L, device=dev).repeat_interleave(NB * cap).int()
+    s_c = torch.arange(NB, device=dev).repeat_interleave(cap).repeat(L).int()
+    rank = torch.arange(cap, device=dev).repeat(L * NB).int()
+    val = torch.randint(-1, C, s_l.shape, generator=g, device=dev, dtype=torch.int32)
+    val[::3] = -1
+    mask = torch.rand(s_l.shape, generator=g, device=dev) < 0.6
+    wp = torch.tensor(write_ptr, dtype=torch.int32, device=dev)
+    nk = torch.tensor(n_kept, dtype=torch.int32, device=dev)
+    before = tables.clone()
+    ops.reset_launches()
+    got = ops.sann_table_commit(tables, ptr, s_l, s_c, rank, val, mask, wp, nk, C)
+    assert ops.LAUNCHES["sann_table_scatter"] == 1
+    want = ref.sann_table_commit_ref(tables, ptr, s_l, s_c, rank, val, mask,
+                                     wp, nk, C)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(tables, before)
 
 
 @pytest.mark.parametrize("B,M,d,k", [(37, 10, 5, 1), (37, 10, 5, 10),
@@ -204,11 +240,17 @@ def test_keep_draws_are_bit_identical_on_the_card(dev):
 
 
 def _sda_case(dev, B, Hkv, G, dh, S, bs, frac, dtype, seed):
+    """Random q, k, v and live blocks: each block live with probability
+    ``frac`` (a float), or exactly ``frac`` blocks a request (an int)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, Hkv, G, dh), generator=g, device=dev)
     k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(dtype)
     v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(dtype)
-    live = torch.rand((B, S // bs), generator=g, device=dev) < frac
+    u = torch.rand((B, S // bs), generator=g, device=dev)
+    if isinstance(frac, int):
+        live = u.argsort(1).argsort(1) < frac
+    else:
+        live = u < frac
     ids, n_live = sketch_decode_attn.compact_live(live)
     return q, k, v, live, ids, n_live
 
@@ -220,6 +262,19 @@ def _sda_case(dev, B, Hkv, G, dh, S, bs, frac, dtype, seed):
     (1, 1, 8, 32, 512, 64, 1.0, 100, 0.0, torch.float32),
     (4, 4, 2, 256, 4096, 512, 0.6, 1000, 0.0, torch.bfloat16),    # lm_serve
     (1, 4, 2, 256, 131_072, 512, 0.5, 131_000, 50.0, torch.bfloat16),
+    # the cp.async pipeline (bf16 K/V, dh 64/128/256/512):
+    (2, 2, 2, 256, 2048, 32, 1, 2048, 0.0, torch.bfloat16),   # 1 tile < ring
+    (2, 2, 2, 256, 2048, 64, 1, 2000, 0.0, torch.bfloat16),   # 2 tiles < ring
+    (2, 4, 2, 256, 4096, 512, 0.6, 1013, 0.0, torch.bfloat16),  # kv_len in a tile
+    (2, 2, 2, 128, 960, 48, 0.7, 900, 0.0, torch.bfloat16),   # block % tile != 0
+    (2, 4, 1, 256, 2048, 512, 0.8, 2000, 0.0, torch.bfloat16),  # G = 1
+    (1, 2, 8, 256, 2048, 256, 0.7, 2048, 30.0, torch.bfloat16),  # G = 8
+    (2, 2, 2, 64, 1024, 64, 0.7, 1000, 0.0, torch.bfloat16),
+    (2, 2, 4, 128, 1024, 128, 0.7, 777, 20.0, torch.bfloat16),
+    (1, 2, 2, 512, 2048, 512, 1.0, 2040, 0.0, torch.bfloat16),
+    (1, 1, 8, 512, 1024, 256, 1.0, 1000, 0.0, torch.bfloat16),  # largest dh, G
+    (2, 2, 2, 96, 1024, 64, 0.7, 1000, 0.0, torch.bfloat16),  # simple path
+    (1, 2, 2, 256, 1024, 512, 1.0, 1000, 0.0, torch.float32),  # fp32 K/V
 ])
 def test_sketch_decode_attn_kernel_matches_plain(dev, B, Hkv, G, dh, S, bs, frac,
                                                  kv_len, softcap, dtype):
@@ -229,6 +284,9 @@ def test_sketch_decode_attn_kernel_matches_plain(dev, B, Hkv, G, dh, S, bs, frac
                                                 bs, softcap)
     want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, bs, softcap)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    # splits combine in a fixed order: a second call gives the same bits
+    assert torch.equal(got, sketch_decode_attn.sketch_decode_attn(
+        q, k, v, ids, n_live, kv_len, bs, softcap))
     # the reference's unbatched form, request by request, in bf16 q as well
     for b in range(min(B, 2)):
         one = sketch_decode_attn.sketch_decode_attn(
@@ -251,18 +309,21 @@ def test_sketch_decode_attn_edge_cases(dev, monkeypatch):
         want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, 64, 0.0)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
         assert not got[1].any()
-    # more splits than live tiles: the idle splits add nothing
+    # more splits than live tiles: the idle splits add nothing (fp32 K/V
+    # takes the simple path, bf16 the cp.async pipeline)
     few = torch.zeros_like(live)
     few[:, 3] = True
     ids, n_live = sketch_decode_attn.compact_live(few)
-    for n_split in (1, 2, 16, 256):
-        monkeypatch.setattr(sketch_decode_attn, "default_n_split",
-                            lambda *shape, n=n_split: n)
-        got = sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, 1024,
-                                                    64, 0.0)
-        torch.testing.assert_close(
-            got, ref.sketch_decode_attn_ref(q, k, v, few, 1024, 64, 0.0),
-            rtol=2e-5, atol=2e-5)
+    for kv in (torch.float32, torch.bfloat16):
+        kd, vd = k.to(kv), v.to(kv)
+        for n_split in (1, 2, 16, 256):
+            monkeypatch.setattr(sketch_decode_attn, "default_n_split",
+                                lambda *shape, n=n_split: n)
+            got = sketch_decode_attn.sketch_decode_attn(q, kd, vd, ids, n_live,
+                                                        1024, 64, 0.0)
+            torch.testing.assert_close(
+                got, ref.sketch_decode_attn_ref(q, kd, vd, few, 1024, 64, 0.0),
+                rtol=2e-5, atol=2e-5)
     monkeypatch.undo()
     ops.reset_launches()
     ops.sketch_decode_attn(q, k, v, ids, n_live, 1024, 64)

@@ -8,6 +8,8 @@ projection); batch_score_topk's and cand_score's d2 agree within
 (1e-5, 1e-6), the fp32 summation order, and ids except at detected
 near-ties.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,3 +230,61 @@ def test_kernel_build_needs_nvcc():
         pytest.skip("nvcc or a card is present; this checks the CPU-only box")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _commit_entries():
+    """A prepared chunk (the reference's sort-by-(row, code) structure) with
+    few codes, so buckets wrap, and a jitted reference tombstone pass."""
+    from repro.core import sann as jsann
+    rng = np.random.default_rng(2)
+    cfg = jsann.SANNConfig(dim=4, n_max=400, eta=0.3, r=1.0, c=1.5, L=3, k=2,
+                           bucket_cap=4, capacity_slack=0.5).resolved()
+    B = 64
+    keep = rng.random(B) < 0.7
+    codes = rng.integers(0, 5, size=(B, cfg.L)).astype(np.int32)
+    prep = jax.jit(jsann.sann_prepare_given_keep, static_argnums=(3,))(
+        None, jnp.zeros((B, 4)), jnp.asarray(keep), cfg, codes=jnp.asarray(codes))
+    entries = [np.array(a) for a in (prep.s_l, prep.s_c, prep.rank)]
+
+    def tombstone(tables, write_ptr, n_kept, cap):
+        # src/repro/core/sann.py sann_commit_chunk's pass, as it stands there
+        ring_off = (jnp.arange(cap, dtype=jnp.int32) - write_ptr) % cap
+        overwritten = ring_off < n_kept
+        stale = (tables >= 0) & overwritten[jnp.maximum(tables, 0)]
+        return jnp.where(stale, jnp.int32(-1), tables)
+
+    return (cfg, entries, np.array(prep.entry_win),
+            jax.jit(tombstone, static_argnums=(3,)))
+
+
+@pytest.mark.parametrize("write_ptr,n_kept", [
+    (3, 9),        # no wrap
+    (17, 9),       # write_ptr + n_kept wraps past capacity
+    (11, 0),       # nothing kept: only the appends
+    (5, 20),       # n_kept = capacity: every slot recycled
+    (5, 33),       # n_kept > capacity
+])
+def test_sann_table_commit_matches_reference(write_ptr, n_kept):
+    """`sann_table_commit_ref` is the reference's tombstone pass then its
+    `sann_table_scatter`, bit for bit: ids at or past capacity (the clamped
+    gather) and loser entries (val = -1) included."""
+    cfg, (s_l, s_c, rank), mask, tombstone = _commit_entries()
+    C = 20
+    rng = np.random.default_rng(write_ptr * 100 + n_kept)
+    L, NB, cap = cfg.L, cfg.n_buckets, cfg.bucket_cap
+    tables = rng.integers(-1, C + 4, size=(L, NB, cap)).astype(np.int32)
+    ptr = rng.integers(0, 50, size=(L, NB)).astype(np.int32)
+    val = rng.integers(-1, C, size=s_l.shape).astype(np.int32)
+    val[::3] = -1                                        # losers
+    want = np.asarray(jref.sann_table_scatter_ref(
+        tombstone(jnp.asarray(tables), jnp.int32(write_ptr), jnp.int32(n_kept), C),
+        *map(jnp.asarray, (ptr, s_l, s_c, rank, val, mask))))
+    t_tables = torch.from_numpy(tables.copy())
+    got = tops.sann_table_commit(
+        t_tables, *map(torch.from_numpy, (ptr, s_l, s_c, rank, val, mask)),
+        torch.tensor(write_ptr, dtype=torch.int32),
+        torch.tensor(n_kept, dtype=torch.int32), C)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(t_tables.numpy(), tables)   # input untouched
+    assert (tables >= C).any() and (got.numpy() == -1).sum() > (tables == -1).sum()

@@ -196,3 +196,20 @@ def test_keep_fraction_within_6_sigma():
     frac = float(prep.keep.float().mean())
     assert abs(frac - p) <= 6 * (p * (1 - p) / n) ** 0.5
     assert int(prep.n_kept) == int(prep.keep.sum())
+
+
+def test_commit_leaves_its_input_state_untouched(built):
+    """The commit's table update (`ops.sann_table_commit`) writes a new
+    tables tensor: recommitting chunk 2 onto chunk 1's state leaves that
+    state as it was and gives chunk 2's state again."""
+    *_, cfg_t, params_t, per_chunk, xs = built
+    _, keep, codes = _stream(1)
+    st = per_chunk[1][0]
+    before = {f: getattr(st, f).clone() for f in st._fields}
+    again = tsann.sann_commit_chunk(st, tsann.sann_prepare_given_keep(
+        params_t, torch.from_numpy(xs[2]), torch.from_numpy(keep[2]), cfg_t,
+        codes=torch.from_numpy(codes[2])), cfg_t)
+    for f, t in before.items():
+        assert torch.equal(getattr(st, f), t), f
+    assert_state_equal(again, per_chunk[2][0])
+    assert again.tables.data_ptr() != st.tables.data_ptr()
