@@ -9,11 +9,11 @@ average.  The PyTorch counterpart of the reference's ``core/swakde.py``.
 over the L hit cells per point).  Batched ingest is two-phase (DESIGN.md
 §10): `swakde_prepare_chunk` hashes the chunk and sorts each row's codes
 into per-cell segments;
-`swakde_commit_chunk` gathers the hit cells and runs closed-form segment
-passes (the `swakde_segment_pass` kernel, DESIGN.md §12) until every
-segment is drained.  Each pass ends with one ``.any()`` check on the host,
-i.e. one device-to-host sync per pass.  The state is all int32 and
-bit-identical to the reference's, dead ring slots included.
+`swakde_commit_chunk` settles every hit cell in closed-form segment passes
+(DESIGN.md §12) until its segment is drained: on the card one launch of the
+`swakde_segment_pass` kernel's drained entry, with no host sync; on the CPU
+the plain pass loop.  The state is all int32 and bit-identical to the
+reference's, dead ring slots included.
 
 `swakde_merge` unions two sketches cell by cell (`eh.eh_merge`), and
 `BatchSWAKDE*` is the Corollary-4.2 model: one batch a timestep, SumEH
@@ -160,31 +160,20 @@ def swakde_prepare_from_codes(codes: torch.Tensor, cfg: SWAKDEConfig,
 
 def swakde_commit_chunk(state: SWAKDEState, prep: SWAKDEPrep,
                         cfg: SWAKDEConfig, count=None) -> SWAKDEState:
-    """Commit: gather the hit cells, run `swakde_segment_pass` until every
-    segment is drained (one host check of ``done < seg_len`` per pass), and
-    write the cells back.  ``count`` (optional) overrides the clock advance
-    (default C), for a prefix-masked prepare."""
+    """Commit: every hit cell absorbs its segment's arrivals in closed-form
+    passes until the segment is drained (`kernel_ops.swakde_segment_commit`:
+    one launch on the card, no host sync), written into a copy of the grid.
+    ``count`` (optional) overrides the clock advance (default C), for a
+    prefix-masked prepare."""
     eh = cfg.eh_config()
-    L, C = prep.order.shape
+    C = prep.order.shape[1]
     sorted_ts = saturating_add(state.t, prep.order)              # (L, C)
-    gcode = torch.clamp(prep.seg_code, max=cfg.W - 1).long()     # clamp padding
-    rows = torch.arange(L, device=sorted_ts.device)[:, None]
-    cell_ts = state.ts[rows, gcode].contiguous()                 # (L, SW, lv, S)
-    cell_num = state.num[rows, gcode].contiguous()               # (L, SW, lv)
-    done = torch.zeros_like(prep.seg_len)
-    while bool((done < prep.seg_len).any()):
-        cell_ts, cell_num, done = kernel_ops.swakde_segment_pass(
-            cell_ts, cell_num, done, sorted_ts, prep.seg_first, prep.seg_len,
-            window=cfg.window, maxb=eh.max_buckets_per_level,
-            n_levels=eh.levels, cap=cfg.heavy_cell_cap)
-    # Write back; sentinel segments (code W) are dropped via a spare cell.
-    ts = torch.cat([state.ts, state.ts[:, :1]], dim=1)
-    num = torch.cat([state.num, state.num[:, :1]], dim=1)
-    code = prep.seg_code.long()
-    ts[rows, code] = cell_ts
-    num[rows, code] = cell_num
-    return SWAKDEState(ts=ts[:, :cfg.W].contiguous(),
-                       num=num[:, :cfg.W].contiguous(),
+    ts, num = kernel_ops.swakde_segment_commit(
+        state.ts.contiguous(), state.num.contiguous(), sorted_ts,
+        prep.seg_code, prep.seg_first, prep.seg_len, window=cfg.window,
+        maxb=eh.max_buckets_per_level, n_levels=eh.levels,
+        cap=cfg.heavy_cell_cap)
+    return SWAKDEState(ts=ts, num=num,
                        t=saturating_add(state.t, C if count is None else count))
 
 

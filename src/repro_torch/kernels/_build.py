@@ -46,6 +46,7 @@ SIGNATURES = {
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
     "swakde_segment_pass_launch": [P, P, P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, I, P],
+    "swakde_segment_commit_launch": [P] * 8 + [I] * 10 + [P],
     "cand_score_launch": [P, P, P, I, I, P],
     "srp_hash_launch": [P, P, P, P, I, I, I, I, I, P],
     "sketch_decode_attn_launch": [P] * 8 + [I] * 11 + [F] * 3 + [P],

@@ -1,8 +1,14 @@
 """CUDA kernels of the two-phase ingest commit.
 
 * ``swakde_segment_pass`` (``csrc/swakde_segment_pass.cu``) replaces the
-  reference's Pallas ``ingest_commit.swakde_segment_pass``: one thread per
-  (row, segment) runs the closed-form DGIM cascade settle as scalar code.
+  reference's Pallas ``ingest_commit.swakde_segment_pass``: one warp per
+  (row, segment) runs the closed-form DGIM cascade settle, lane s owning
+  ring slot s.
+* ``swakde_segment_commit`` (the same source and device code) is the
+  SW-AKDE commit of a chunk: each warp reads its hit cell from the state
+  grid, runs passes until its segment is drained, and writes the settled
+  cell into a copy of the grid, with no check on the host between passes.
+  It counts as one ``swakde_segment_pass`` launch.
 * ``sann_table_scatter`` (``csrc/sann_table_scatter.cu``) replaces the
   reference's Pallas ``ingest_commit.sann_table_scatter`` and its O(L·E)
   serial walk: one thread per append entry, updating ``tables`` in place.
@@ -49,6 +55,33 @@ def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
                   ts_out, num_out, done_out,
                   R, G, LV, S, C, window, maxb, n_levels, cap)
     return ts_out, num_out, done_out
+
+
+def swakde_segment_commit(ts, num, sorted_ts, seg_code, seg_first, seg_len,
+                          *, window: int, maxb: int, n_levels: int,
+                          cap: int = 0):
+    """The SW-AKDE commit of a prepared chunk (contract:
+    `ref.swakde_segment_commit_ref`) → new ``(ts, num)`` grids; the inputs
+    are not modified."""
+    L, W, LV, S = ts.shape
+    C = sorted_ts.shape[1]
+    G = seg_code.shape[1]
+    i32 = torch.int32
+    _build.check("swakde_segment_commit ts", ts, i32, (L, W, LV, S))
+    _build.check("swakde_segment_commit num", num, i32, (L, W, LV))
+    _build.check("swakde_segment_commit sorted_ts", sorted_ts, i32, (L, C))
+    _build.check_all("swakde_segment_commit",
+                     {"seg_code": seg_code, "seg_first": seg_first,
+                      "seg_len": seg_len}, i32, (L, G))
+    if S > MAX_SLOTS:
+        raise ValueError(f"swakde_segment_commit: slots {S} > {MAX_SLOTS}")
+    ts_out, num_out = ts.clone(), num.clone()
+    if L * G:
+        _build.launch("swakde_segment_pass", "swakde_segment_commit_launch",
+                      ts, num, sorted_ts, seg_code, seg_first, seg_len,
+                      ts_out, num_out,
+                      L, G, W, LV, S, C, window, maxb, n_levels, cap)
+    return ts_out, num_out
 
 
 def _check_entries(name, tables, table_ptr, s_l, s_c, rank, val, mask):

@@ -72,6 +72,19 @@ def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
               window=window, maxb=maxb, n_levels=n_levels, cap=cap)
 
 
+def swakde_segment_commit(ts, num, sorted_ts, seg_code, seg_first, seg_len,
+                          *, window: int, maxb: int, n_levels: int,
+                          cap: int = 0):
+    """The SW-AKDE commit of a prepared chunk: every hit cell drained
+    through closed-form passes and written into a copy of the grid (see
+    `ref.swakde_segment_commit_ref`) → ``(ts, num)``.  On the card one
+    launch, counted as ``swakde_segment_pass``, with no host sync."""
+    fn = _ic.swakde_segment_commit if use_kernel(ts) \
+        else ref.swakde_segment_commit_ref
+    return fn(ts, num, sorted_ts, seg_code, seg_first, seg_len,
+              window=window, maxb=maxb, n_levels=n_levels, cap=cap)
+
+
 def sann_table_scatter(tables, table_ptr, s_l, s_c, rank, val, mask):
     """Sorted-segment ring append into the S-ANN hash tables, **in place**
     on ``tables`` (see `ref.sann_table_scatter_ref`); returns ``tables``."""

@@ -210,6 +210,40 @@ def swakde_segment_pass_ref(
     return cts, cnum, done + p
 
 
+def swakde_segment_commit_ref(
+    ts: torch.Tensor,         # (L, W, levels, S) int32 — the state's EH rings
+    num: torch.Tensor,        # (L, W, levels) int32 — live buckets per level
+    sorted_ts: torch.Tensor,  # (L, C) int32 — per-row stamps, sorted order
+    seg_code: torch.Tensor,   # (L, G) int32 — cell of each segment (W = none)
+    seg_first: torch.Tensor,  # (L, G) int32 — first sorted position
+    seg_len: torch.Tensor,    # (L, G) int32 — arrivals hitting each segment
+    *,
+    window: int,
+    maxb: int,
+    n_levels: int,
+    cap: int = 0,
+):
+    """The SW-AKDE commit of a prepared chunk → new ``(ts, num)``; the
+    inputs are not modified.  Gathers each segment's cell by ``seg_code``,
+    runs `swakde_segment_pass_ref` until every segment is drained, and
+    writes the settled cells back; sentinel segments (code ``W``) are
+    dropped, as the reference's ``mode="drop"`` scatter does."""
+    L, W = ts.shape[:2]
+    rows = torch.arange(L, device=ts.device)[:, None].expand_as(seg_code)
+    gcode = torch.clamp(seg_code, max=W - 1).long()           # clamp padding
+    cell_ts, cell_num = ts[rows, gcode], num[rows, gcode]
+    done = torch.zeros_like(seg_len)
+    while bool((done < seg_len).any()):
+        cell_ts, cell_num, done = swakde_segment_pass_ref(
+            cell_ts, cell_num, done, sorted_ts, seg_first, seg_len,
+            window=window, maxb=maxb, n_levels=n_levels, cap=cap)
+    real = seg_code < W
+    ts, num = ts.clone(), num.clone()
+    ts[rows[real], seg_code[real].long()] = cell_ts[real]
+    num[rows[real], seg_code[real].long()] = cell_num[real]
+    return ts, num
+
+
 def sann_table_scatter_ref(
     tables: torch.Tensor,     # (L, n_buckets, bucket_cap) int32, updated in place
     table_ptr: torch.Tensor,  # (L, n_buckets) int32 — per-bucket ring pointers

@@ -2,7 +2,8 @@
 (``csrc/srp_hash.cu``).
 
 Replaces the reference's Pallas ``srp_hash`` (``kernels/srp_hash.py``): a
-tiled fp32 GEMM whose epilogue takes the sign bits and the uint32 fold.
+3xTF32 tensor-core GEMM whose epilogue takes the sign bits and the uint32
+fold.
 See the source note for the bound and the design.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from . import _build
 
-MAX_K = 64              # kTileN in csrc/srp_hash.cu: whole hash rows per block
+MAX_K = 96              # kTileN in csrc/srp_hash.cu: whole hash rows per block
 
 
 def srp_hash(x: torch.Tensor, proj: torch.Tensor, mix: torch.Tensor,

@@ -18,7 +18,10 @@ to 8, live lists shorter than the ring and sketch blocks that are not a
 multiple of its tile; it agrees with its plain version within 2e-5 (fp32
 sums in another order, the reference kernel's own bound) and gives the
 same bits twice.  `sann_table_commit` is bit-equal to its plain version
-with the ring interval wrapping and with n_kept at or past capacity.
+with the ring interval wrapping and with n_kept at or past capacity.  The
+drained SW-AKDE commit is bit-equal to its plain pass loop (caps 0, 1, 3,
+padding and masked-row segments) in one launch a chunk, and `srp_hash`'s
+3xTF32 signs at 0 follow the flip rule.
 """
 import pytest
 import torch
@@ -149,6 +152,41 @@ def test_swakde_segment_pass_kernel_matches_plain(dev, cap):
         state = swakde.swakde_commit_chunk(state, prep, cfg)
 
 
+@pytest.mark.parametrize("cap", [0, 1, 3])
+def test_swakde_segment_commit_kernel_matches_plain(dev, cap):
+    """The drained commit (one launch a chunk, no host sync) against its
+    plain pass loop on a stream whose window expires inside chunks, with
+    padding segments and, in one chunk, a masked-row segment; the state
+    passed in is not modified."""
+    from repro_torch.core import swakde
+    from repro_torch.core.util import saturating_add
+    cfg = swakde.SWAKDEConfig(L=5, W=16, window=40, eh_eps=0.2,
+                              heavy_cell_cap=cap)
+    eh = cfg.eh_config()
+    kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+              n_levels=eh.levels, cap=cap)
+    g = torch.Generator(device=dev).manual_seed(10 + cap)
+    state = swakde.swakde_init(cfg, dev)
+    for n_live in (64, 64, 50, 64, 64):
+        codes = torch.randint(0, 5, (64, cfg.L), generator=g, device=dev,
+                              dtype=torch.int32)
+        codes[:40, 1] = 2                                # a heavy cell
+        mask = torch.arange(64, device=dev) < n_live
+        prep = swakde.swakde_prepare_from_codes(codes, cfg, mask)
+        before = (state.ts.clone(), state.num.clone())
+        args = (state.ts, state.num, saturating_add(state.t, prep.order),
+                prep.seg_code, prep.seg_first, prep.seg_len)
+        want = ref.swakde_segment_commit_ref(*args, **kw)
+        got = ingest_commit.swakde_segment_commit(*args, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        ops.reset_launches()
+        state = swakde.swakde_commit_chunk(state, prep, cfg, count=n_live)
+        assert ops.LAUNCHES["swakde_segment_pass"] == 1
+        assert torch.equal(state.ts, want[0]) and torch.equal(state.num, want[1])
+        assert torch.equal(args[0], before[0]) and torch.equal(args[1], before[1])
+
+
 def test_wrappers_count_launches_and_check_arguments(dev):
     ops.reset_launches()
     codes = torch.zeros((8, 2), dtype=torch.int32, device=dev)
@@ -194,6 +232,35 @@ def test_srp_hash_kernel_matches_plain(dev, B, d, L, k, nb):
     flips, unexplained = ref.srp_code_flips(x, proj, mix, got, want)
     assert unexplained == 0, "srp_hash code differs away from a sign boundary"
     assert flips <= max(1, B * L // 1000)
+
+
+def test_srp_hash_kernel_signs_at_zero(dev):
+    """Rows of x orthogonal to some projection columns (y exactly 0 in
+    exact arithmetic) and rows within 1e-7 of that: the 3xTF32 sign near 0
+    may differ from the plain version's only under the flip rule."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, d, L, k, nb = 300, 384, 96, 2, 96
+    proj = torch.randn((d, L * k), generator=g, device=dev)
+    mix = torch.randint(1, 2**31 - 1, (L, k), generator=g, device=dev,
+                        dtype=torch.int64) * 2 + 1
+    x = torch.randn((B, d), generator=g, device=dev)
+    # project the first 200 rows off columns 0..7 (in float64), then nudge
+    # half of them by 1e-7 of |x| along column 0
+    cols = proj[:, :8].double()
+    q, _ = torch.linalg.qr(cols)
+    xd = x[:200].double()
+    xd = xd - (xd @ q) @ q.T
+    xd[100:] += 1e-7 * xd[100:].norm(dim=1, keepdim=True) * \
+        (cols[:, 0] / cols[:, 0].norm())
+    x[:200] = xd.float()
+    got = srp_hash.srp_hash(x, proj, mix, nb)
+    want = ref.srp_hash_ref(x, proj, mix, nb)
+    assert bool(((got >= 0) & (got < nb)).all())
+    y = x[:200].double() @ proj[:, :8].double()
+    assert float(y.abs().max()) <= 1e-5 * float(x[:200].norm(dim=1).max()) * \
+        float(proj[:, :8].norm(dim=0).max())
+    flips, unexplained = ref.srp_code_flips(x, proj, mix, got, want)
+    assert unexplained == 0, "srp_hash code differs away from a sign boundary"
 
 
 def test_new_wrappers_count_launches_and_refuse_bad_arguments(dev):

@@ -211,6 +211,43 @@ def test_swakde_segment_pass_matches_reference(cap):
     np.testing.assert_array_equal(t[2].numpy(), seg_len)
 
 
+@pytest.mark.parametrize("cap", [0, 1, 3])
+def test_swakde_segment_commit_matches_reference_commit(cap):
+    """The drained commit's plain version against the reference's
+    `swakde_commit_chunk` (its loop of passes and the drop-mode write-back),
+    bit-exact after every chunk, dead ring slots included: 122 stamps
+    through a window of 40, so cells expire inside chunks, padding segments
+    in every row, and one prefix-masked chunk whose masked-row segment must
+    leave the grid alone.  The dispatch runs it for CPU tensors and
+    launches nothing."""
+    cfg = jswakde.SWAKDEConfig(L=4, W=16, window=40, eh_eps=0.2,
+                               heavy_cell_cap=cap)
+    prep_cfg = jswakde.SWAKDEConfig(L=4, W=16, window=40, eh_eps=0.2)
+    eh = cfg.eh_config()
+    kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+              n_levels=eh.levels, cap=cap)
+    rng = np.random.default_rng(30 + cap)
+    st = jswakde.swakde_init(cfg)
+    tops.reset_launches()
+    for n_live in (32, 32, 26, 32):
+        codes = rng.integers(0, 5, size=(32, cfg.L)).astype(np.int32)
+        codes[:16, 2] = 1                                # a heavy cell
+        prep = _prep_codes(jnp.asarray(codes), prep_cfg,
+                           jnp.asarray(np.arange(32) < n_live))
+        t = [torch.from_numpy(np.array(a)) for a in
+             (st.ts, st.num, st.t + prep.order, prep.seg_code,
+              prep.seg_first, prep.seg_len)]
+        # the masked chunk through the dispatch, the others straight
+        commit = tops.swakde_segment_commit if n_live < 32 \
+            else tref.swakde_segment_commit_ref
+        got = commit(*t, **kw)
+        st = _commit(st, prep, cfg, count=jnp.int32(n_live))
+        for a, b in zip(got, (st.ts, st.num)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(st.t) == 122
+    assert all(n == 0 for n in tops.LAUNCHES.values())
+
+
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     """Dispatch: a CPU tensor runs the plain version and counts no launch;
     the kernel wrapper itself refuses a CPU tensor instead of falling back."""

@@ -106,6 +106,20 @@ def test_swakde_prepare_mask_matches_reference():
     st = tswakde.swakde_commit_chunk(tswakde.swakde_init(cfg_t, device="cpu"),
                                      pt, cfg_t, count=9)
     assert_state_equal(st, sj)
+    # two more masked chunks on that state: 9 + 11 + 11 stamps through a
+    # window of 20, so cells expire inside the third chunk
+    for n_live in (11, 11):
+        codes = np.random.default_rng(n_live + int(st.t)).integers(
+            0, 8, size=(12, 3)).astype(np.int32)
+        mask = np.arange(12) < n_live
+        pj = _prep_codes(jnp.asarray(codes), cfg_j, jnp.asarray(mask))
+        sj = _commit(sj, pj, cfg_j, count=n_live)
+        st = tswakde.swakde_commit_chunk(
+            st, tswakde.swakde_prepare_from_codes(torch.from_numpy(codes), cfg_t,
+                                                  torch.from_numpy(mask)),
+            cfg_t, count=n_live)
+        assert_state_equal(st, sj)
+    assert int(st.t) == 31
 
 
 @pytest.fixture(scope="module")
