@@ -47,7 +47,11 @@ must give bit-identical state.  Then every kernel is held against its plain
 PyTorch version on the card at the main path's shapes and timed beside it
 (and beside the one PyTorch call that computes the same function, where
 there is one; for the S-ANN table commit, beside the plain PyTorch
-sequence it replaced).
+sequence it replaced; for the S-ANN scorer's gather entry, beside the
+``points[cand]`` gather + ``(B, M, d)`` entry it replaced).  The drained
+SW-AKDE commit also runs past 32 EH slots (eps 0.01, 52 slots) at full
+width, bit-identical to the CPU plain path over chunks that expire, and
+``race_hist`` must run as one device op a call.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -78,6 +82,9 @@ ORACLE_QUERIES, ORACLE_TOPK_QUERIES = 1024, 256
 ORACLE_SANN_POINTS, ORACLE_KDE_POINTS, ORACLE_KDE_QUERIES = 16_384, 8192, 256
 MERGE_PREFIX = 131_072
 BATCH_KDE_BATCHES, BATCH_KDE_WINDOW = 64, 16
+# the SW-AKDE commit past 32 EH slots: eps 0.01 (52 slots), chunks on the
+# card before the CPU cross-check (16 fill the 65 536 window) and in it
+SLOTS_EPS, SLOTS_WARM, SLOTS_CROSS = 0.01, 16, 4
 RTOL, ATOL = 1e-5, 1e-6          # fp32 summation order (scorers)
 SRP_FLIP_TOL = 1e-5              # |y| <= tol * |x| * |proj column| may flip
 # LM decode (gemma3-4b at its published width): lm_serve, lm_long, and the
@@ -166,7 +173,7 @@ def time_ms(fn, iters: int, device, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-KERNEL_SYMBOLS = {"race_hist": "race_hist_smem",
+KERNEL_SYMBOLS = {"race_hist": "race_hist_kernel",
                   # the commit's both launches: the tombstone copy and the
                   # append (`sann_table_scatter_kernel`)
                   "sann_table_scatter": "sann_table_scatter_",
@@ -1227,21 +1234,59 @@ def phase_lm_long(seed, serve_run, device, s_max=LM_LONG_S,
 # phase 4: every kernel against its plain version, timed
 # --------------------------------------------------------------------------
 
+def kernels_per_call(fn, device) -> int:
+    """Device operations (kernel, memset and copy nodes) that one call of
+    ``fn()`` puts on the stream: one call captured into a CUDA graph that
+    is kept, and its nodes counted with ``cuGraphGetNodes`` (libcuda).
+    The profiler cannot serve here: late in a long run it drops the device
+    events of short windows."""
+    import ctypes
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                         # first use (workspaces) outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    sync(device)
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    del graph
+    if err:
+        fail(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
 def check_race_hist(kde, device):
+    """`race_hist` on one ingest chunk's codes: bit-equal to its plain
+    version, one launch a call and no other device op (no fill: the kernel
+    stores every bin)."""
     import torch
     from repro_torch.core import lsh
-    from repro_torch.kernels import race_update, ref
+    from repro_torch.kernels import ops, race_update, ref
     W = kde["cfg"].W
     codes = lsh.hash_points(kde["params"], kde["data"][:CHUNK]).contiguous()
     B, L = codes.shape
+    torch.full((L, W), -7, dtype=torch.int32, device=device)   # stale memory
+    ops.reset_launches()
     got = race_update.race_hist(codes, W)
+    entry_launches = ops.LAUNCHES["race_hist"]
     want = ref.race_hist_ref(codes, W)
     err = int((got - want).abs().max())
     if err != 0:
         fail("race_hist differs from its plain version")
+    per_call = kernels_per_call(lambda: race_update.race_hist(codes, W), device)
+    if entry_launches != 1 or per_call != 1:
+        fail(f"race_hist: {entry_launches} launches and {per_call} device ops "
+             f"a call, expected 1 and 1")
     flat = (codes.long() + torch.arange(L, device=device) * W).reshape(-1)
     b_ms, b_by = bound(B * L * 4 + L * W * 4)
     return {"name": "race_hist", "shape": [B, L, W], "max_abs_err": err,
+            "launches_per_call": entry_launches,
+            "device_ops_per_call": per_call,
             "ms": time_ms(lambda: race_update.race_hist(codes, W), 50, device),
             "device_ms": device_ms(lambda: race_update.race_hist(codes, W),
                                    "race_hist", device),
@@ -1372,10 +1417,18 @@ def topk_err(d_k, i_k, d_r, i_r, full_d2):
 
 
 def check_batch_score_topk(sann_run, device):
+    """Both entries at the S-ANN query path's two shapes, on a block of
+    2048 real queries against the ingested SIFT1M-shaped state: the (c, r)
+    path's first 3L valid candidates (k = 1) and the top-50 path's
+    deduplicated bucket union.  The gather entry (the main path's) is timed
+    beside the path it replaced (the ``points[cand]`` gather + the
+    ``(B, M, d)`` entry, by graph); its bound counts qs, the slot ids, the
+    mask, each distinct point row a live entry names, and the outputs."""
     import torch
     from repro_torch.core import sann
     from repro_torch.kernels import batch_score, ref
     cfg, params, state = sann_run["cfg"], sann_run["params"], sann_run["state"]
+    points = state.points
     qs = sann_run["queries"][:QUERY_BLOCK].contiguous()
     cand, ok = sann.sann_bucket_candidates_batch(state, params, qs, cfg)
     rows = []
@@ -1387,21 +1440,51 @@ def check_batch_score_topk(sann_run, device):
     sel_ok = sel < cand.shape[1]
     sel_cand = torch.where(sel_ok, torch.gather(cand, 1, sel.clamp(
         max=cand.shape[1] - 1)), -1)
-    vecs1 = state.points[sel_cand.clamp(min=0).long()]
     # top-k path: the deduplicated bucket union, k = 50
     mask = ok & sann._first_occurrence_mask(cand, cfg.capacity)
-    vecs2 = state.points[cand.clamp(min=0).long()]
-    for vecs, okm, k in ((vecs1, sel_ok, 1), (vecs2, mask, TOPK)):
-        B, M, d = vecs.shape
-        d_k, i_k = batch_score.batch_score_topk(qs, vecs, okm, k)
-        d_r, i_r = ref.batch_score_topk_ref(qs, vecs, okm, k)
+    for ids, okm, k in ((sel_cand, sel_ok, 1), (cand, mask, TOPK)):
+        B, M = ids.shape
+        d = points.shape[1]
+        vecs = points[ids.clamp(min=0).long()]
         full = torch.where(okm, ref.batch_score_ref(qs, vecs), float("inf"))
+        d_r, i_r = ref.batch_score_topk_ref(qs, vecs, okm, k)
+        d_g, i_g = batch_score.batch_score_topk_gather(qs, points, ids, okm, k)
+        err_g, mism_g = topk_err(d_g, i_g, d_r, i_r, full)
+        d_k, i_k = batch_score.batch_score_topk(qs, vecs, okm, k)
         err, mism = topk_err(d_k, i_k, d_r, i_r, full)
-        b_ms, b_by = bound(B * d * 4 + B * M * d * 4 + B * M + B * k * 8,
-                           3.0 * B * M * d)
+        if not (torch.equal(d_k, d_g) and torch.equal(i_k, i_g)):
+            fail("batch_score_topk: the gather entry and the (B, M, d) entry "
+                 "differ on the same rows")
+        live = int(okm.sum())
+        distinct = int(torch.unique(ids[okm]).numel())
+        ops_n = 3.0 * live * d
+        b_ms, b_by = bound(B * d * 4 + B * M * 4 + B * M + distinct * d * 4
+                           + B * k * 8, ops_n)
+        gather = lambda: batch_score.batch_score_topk_gather(qs, points, ids,
+                                                             okm, k)
+        old = lambda: batch_score.batch_score_topk(
+            qs, points[ids.clamp(min=0).long()], okm, k)
         rows.append({
-            "name": "batch_score_topk", "shape": [B, M, d, k],
-            "max_abs_err": err, "id_mismatches_at_near_ties": mism,
+            "name": "batch_score_topk", "entry": "batch_score_topk_gather",
+            "shape": [B, M, d, k], "live_entries": live,
+            "distinct_rows": distinct, "max_abs_err": err_g,
+            "id_mismatches_at_near_ties": mism_g,
+            "ms": time_ms(gather, 50, device),
+            "device_ms": device_ms(gather, "batch_score_topk", device),
+            "graph_ms": graph_ms(gather, device),
+            "plain_ms": time_ms(lambda: ref.batch_score_topk_gather_ref(
+                qs, points, ids, okm, k), 10, device),
+            "old_path_ms": time_ms(old, 20, device),
+            "old_path_graph_ms": graph_ms(old, device),
+            "library_ms": None, "library": "none (no single call)",
+            "bound_ms": b_ms, "bound_by": b_by})
+        # the reference kernel's own (B, M, d) signature on the same body;
+        # its bound reads the whole (B, M, d) tensor's live rows
+        b_ms, b_by = bound(B * d * 4 + live * d * 4 + B * M + B * k * 8, ops_n)
+        rows.append({
+            "name": "batch_score_topk", "entry": "batch_score_topk",
+            "shape": [B, M, d, k], "max_abs_err": err,
+            "id_mismatches_at_near_ties": mism,
             "ms": time_ms(lambda: batch_score.batch_score_topk(qs, vecs, okm, k),
                           50, device),
             "device_ms": device_ms(lambda: batch_score.batch_score_topk(
@@ -1411,6 +1494,7 @@ def check_batch_score_topk(sann_run, device):
             "plain_ms": time_ms(lambda: ref.batch_score_topk_ref(qs, vecs, okm, k),
                                 10, device),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        del vecs, full
     return rows
 
 
@@ -1495,6 +1579,77 @@ def check_swakde_segment_pass(kde, device):
             "pass_graph_ms": graph_ms(lambda: ingest_commit.swakde_segment_pass(
                 *first, *fixed, **kw), device),
             "pass_bound_ms": pass_b_ms}
+
+
+def check_swakde_many_slots(kde, device):
+    """The drained SW-AKDE commit past 32 EH slots (its shared-memory form)
+    at full width: eps 0.01 (52 slots), L = W = 96, window 65 536, on the
+    news-like stream's p-stable codes.  16 chunks on the card fill the
+    window; 4 more, whose stamps expire inside them, run on the card and on
+    the CPU plain path from the same state and codes and must give
+    bit-identical state after each.  The last commit is timed by graph."""
+    import torch
+    from repro_torch.core import lsh, swakde
+    from repro_torch.core.util import saturating_add
+    from repro_torch.kernels import ingest_commit, ops, ref
+    base = kde["cfg"]
+    cfg = swakde.SWAKDEConfig(L=base.L, W=base.W, window=base.window,
+                              eh_eps=SLOTS_EPS)
+    eh = cfg.eh_config()
+    params, data = kde["params"], kde["data"]
+
+    def codes(i):
+        return lsh.hash_points(params, data[i * CHUNK:(i + 1) * CHUNK])
+
+    st = swakde.swakde_init(cfg, device)
+    ops.reset_launches()
+    for i in range(SLOTS_WARM):
+        st = swakde.swakde_commit_chunk(
+            st, swakde.swakde_prepare_from_codes(codes(i), cfg), cfg)
+    launches = ops.LAUNCHES["swakde_segment_pass"]
+    if launches != SLOTS_WARM:
+        fail(f"the 52-slot commit launched {launches} times in {SLOTS_WARM} "
+             f"chunks")
+    st_cpu = swakde.SWAKDEState(*(x.cpu() for x in st))
+    for i in range(SLOTS_WARM, SLOTS_WARM + SLOTS_CROSS):
+        c = codes(i)
+        prep = swakde.swakde_prepare_from_codes(c, cfg)
+        last = (st, prep)
+        st = swakde.swakde_commit_chunk(st, prep, cfg)
+        st_cpu = swakde.swakde_commit_chunk(
+            st_cpu, swakde.swakde_prepare_from_codes(c.cpu(), cfg), cfg)
+        bad = differing_leaves(st, st_cpu)
+        if bad:
+            fail(f"the {eh.slots}-slot SW-AKDE commit differs from the CPU "
+                 f"plain path in {bad} at chunk {i}")
+    state, prep = last
+    args = (state.ts, state.num, saturating_add(state.t, prep.order),
+            prep.seg_code, prep.seg_first, prep.seg_len)
+    kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+              n_levels=eh.levels, cap=cfg.heavy_cell_cap)
+    L, W, LV, S = state.ts.shape
+    C, G = args[2].shape[1], prep.seg_code.shape[1]
+    grid = L * W * (LV * S + LV) * 4
+    b_ms, b_by = bound(2 * grid + L * C * 4 + 3 * L * G * 4)
+
+    def commit():
+        return ingest_commit.swakde_segment_commit(*args, **kw)
+
+    return {"name": "swakde_segment_pass", "entry": "swakde_segment_commit",
+            "eh_eps": SLOTS_EPS, "eh_slots": S, "shape": [L, W, LV, S, C],
+            "segments": int((prep.seg_code < W).sum()),
+            "chunks_on_card": SLOTS_WARM + SLOTS_CROSS,
+            "chunks_bit_identical_to_cpu": SLOTS_CROSS,
+            "max_buckets_in_a_level": int(st.num.max()),
+            "cell_bytes_a_warp": ingest_commit.swakde_cell_bytes(LV, S),
+            "max_abs_err": 0,
+            "ms": time_ms(commit, 20, device),
+            "device_ms": device_ms_all(commit, device),
+            "kernel_device_ms": device_ms(commit, "swakde_segment_pass", device),
+            "graph_ms": graph_ms(commit, device),
+            "plain_ms": time_ms(lambda: ref.swakde_segment_commit_ref(*args, **kw),
+                                2, device, warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_cand_score(sann_run, device):
@@ -1793,6 +1948,7 @@ def main(argv=None) -> int:
             *check_cand_score(sann_run, device),
             *check_batch_score_topk(sann_run, device),
             check_swakde_segment_pass(kde_run, device),
+            check_swakde_many_slots(kde_run, device),
             *check_sann_table_scatter(sann_run, device),
             *check_sketch_decode_attn(serve_run, device)]
     for row in rows:
@@ -1800,8 +1956,12 @@ def main(argv=None) -> int:
     phase_profile(sann_run, kde_run, srp_run, serve_run, device)
     summary = []
     for row in rows:
-        if row["name"] == "batch_score_topk" and row["shape"][-1] == 1:
-            continue        # the (c, r) shape; reported in its kernel_check line
+        if row["name"] == "batch_score_topk" and (
+                row["shape"][-1] == 1 or row["entry"] == "batch_score_topk"):
+            continue        # the (c, r) shape and the (B, M, d) entry; in
+                            # their kernel_check lines
+        if row.get("eh_slots"):
+            continue        # the 52-slot commit; in its kernel_check line
         if row["name"] == "cand_score" and row["shape"][0] == 3 * sann_run["cfg"].L:
             continue        # the 3L shape; reported in its kernel_check line
         if row["name"] == "sketch_decode_attn" and row["case"] != "lm_serve":
@@ -1822,7 +1982,10 @@ def main(argv=None) -> int:
                                    "matmul_only_ms", "matmul_only_device_ms",
                                    "matmul_only_graph_ms", "graph_ms", "pass_graph_ms",
                                    "tensor_core_bound_ms", "kernel_device_ms",
-                                   "pass_ms", "pass_device_ms", "pass_bound_ms")
+                                   "pass_ms", "pass_device_ms", "pass_bound_ms",
+                                   "launches_per_call", "device_ops_per_call",
+                                   "live_entries", "distinct_rows",
+                                   "old_path_ms", "old_path_graph_ms")
                if k in row}})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,9 @@ Ingest paths:
 Query paths: `sann_query` / `sann_query_topk` score one query's candidates
 with the `cand_score` kernel (the oracles); `sann_query_batch` /
 `sann_query_topk_batch` are the fused batch engine (§9) on the
-`batch_score_topk` kernel, with results identical to the oracles.
+`batch_score_topk` kernel's gather entry (`ops.batch_score_topk_gather`:
+slot ids in, the candidate rows read in the kernel), with results
+identical to the oracles.
 
 Random numbers: keep decisions come from threefry keys (`core.prng`),
 ``bernoulli(fold_in(key, i), keep_prob)`` for the i-th point of a chunk,
@@ -467,8 +469,9 @@ def sann_score_candidates_batch(points: torch.Tensor, cand: torch.Tensor,
                                 budget: int, cfg: SANNConfig) -> SANNResult:
     """Batched truncate-and-score: keep the first ``budget`` valid
     candidates of each row (the paper's 3L early exit, located by a binary
-    search on the running valid count), score them with the fused
-    `batch_score_topk` kernel (k = 1) and return the argmin if within c*r."""
+    search on the running valid count), score them by slot id with the
+    fused `batch_score_topk_gather` kernel (k = 1; the candidate rows are
+    read in the kernel) and return the argmin if within c*r."""
     C = cand.shape[1]
     budget_eff = min(budget, C)
     csum = torch.cumsum(ok, dim=1).to(_I32)                  # running count
@@ -479,8 +482,8 @@ def sann_score_candidates_batch(points: torch.Tensor, cand: torch.Tensor,
     sel_ok = sel < C                  # j-th valid exists ⇔ search stayed in
     sel = sel.clamp(max=C - 1)
     sel_cand = torch.where(sel_ok, torch.gather(cand, 1, sel), -1)
-    vecs = points[sel_cand.clamp(min=0).long()]              # (B, budget, d)
-    d2, idx = kernel_ops.batch_score_topk(qs, vecs, sel_ok, 1)
+    d2, idx = kernel_ops.batch_score_topk_gather(qs, points, sel_cand,
+                                                 sel_ok, 1)
     dist = torch.sqrt(d2[:, 0])
     found = dist <= cfg.c * cfg.r
     best = torch.gather(sel_cand, 1, idx.long())[:, 0]
@@ -535,8 +538,8 @@ def sann_query_topk_batch(state: SANNState, params, qs: torch.Tensor,
     ``k = min(topk, L * bucket_cap)``, ascending, padded with -1 / inf."""
     cand, ok = sann_bucket_candidates_batch(state, params, qs, cfg)
     mask = ok & _first_occurrence_mask(cand, state.points.shape[0])
-    vecs = state.points[cand.clamp(min=0).long()]            # (B, C, dim)
     k = min(topk, cand.shape[1])
-    d2, idx = kernel_ops.batch_score_topk(qs, vecs, mask, k)
+    d2, idx = kernel_ops.batch_score_topk_gather(qs, state.points, cand,
+                                                 mask, k)
     ids = torch.where(torch.isfinite(d2), torch.gather(cand, 1, idx.long()), -1)
     return ids, torch.sqrt(d2)

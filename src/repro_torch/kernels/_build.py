@@ -44,6 +44,7 @@ SIGNATURES = {
     "sann_table_commit_launch": [P, P, P, P, P, P, P, P, P, P,
                                  I, I, I, I, I, P],
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
+    "batch_score_topk_gather_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
     "swakde_segment_pass_launch": [P, P, P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, I, P],
     "swakde_segment_commit_launch": [P] * 8 + [I] * 10 + [P],

@@ -2,8 +2,9 @@
 
 * ``swakde_segment_pass`` (``csrc/swakde_segment_pass.cu``) replaces the
   reference's Pallas ``ingest_commit.swakde_segment_pass``: one warp per
-  (row, segment) runs the closed-form DGIM cascade settle, lane s owning
-  ring slot s.
+  (row, segment) runs the closed-form DGIM cascade settle, lane j owning
+  ring slots j, j + 32, ... (any number of EH slots whose cell fits in one
+  SM's shared memory).
 * ``swakde_segment_commit`` (the same source and device code) is the
   SW-AKDE commit of a chunk: each warp reads its hit cell from the state
   grid, runs passes until its segment is drained, and writes the settled
@@ -25,7 +26,27 @@ import torch
 
 from . import _build
 
-MAX_SLOTS = 32          # kMaxSlots in csrc/swakde_segment_pass.cu
+SMEM_LIMIT = 232_448    # bytes of shared memory one block may use (H100)
+
+
+def swakde_cell_bytes(levels: int, slots: int) -> int:
+    """Shared memory one warp's cell takes in ``csrc/swakde_segment_pass.cu``
+    (``warp_cell_ints``): ``levels * 34`` ints up to 32 slots, else
+    ``levels * (S_pad + 2) + 3 * S_pad`` with ``S_pad = 32 * ceil(S / 32)``."""
+    if slots <= 32:
+        return 4 * levels * 34
+    s_pad = 32 * -(-slots // 32)
+    return 4 * (levels * (s_pad + 2) + 3 * s_pad)
+
+
+def _check_cell_fits(name: str, levels: int, slots: int) -> None:
+    need = swakde_cell_bytes(levels, slots)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: an EH cell of {levels} levels x {slots} slots needs "
+            f"{need} bytes of shared memory for one warp, more than the "
+            f"{SMEM_LIMIT} one block may use; raise eh_eps or shorten the "
+            f"window")
 
 
 def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
@@ -43,8 +64,7 @@ def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
     _build.check("swakde_segment_pass sorted_ts", sorted_ts, i32, (R, C))
     _build.check("swakde_segment_pass seg_first", seg_first, i32, (R, G))
     _build.check("swakde_segment_pass seg_len", seg_len, i32, (R, G))
-    if S > MAX_SLOTS:
-        raise ValueError(f"swakde_segment_pass: slots {S} > {MAX_SLOTS}")
+    _check_cell_fits("swakde_segment_pass", LV, S)
     if R * G == 0:
         return cell_ts.clone(), cell_num.clone(), done.clone()
     ts_out = torch.empty_like(cell_ts)
@@ -73,8 +93,7 @@ def swakde_segment_commit(ts, num, sorted_ts, seg_code, seg_first, seg_len,
     _build.check_all("swakde_segment_commit",
                      {"seg_code": seg_code, "seg_first": seg_first,
                       "seg_len": seg_len}, i32, (L, G))
-    if S > MAX_SLOTS:
-        raise ValueError(f"swakde_segment_commit: slots {S} > {MAX_SLOTS}")
+    _check_cell_fits("swakde_segment_commit", LV, S)
     ts_out, num_out = ts.clone(), num.clone()
     if L * G:
         _build.launch("swakde_segment_pass", "swakde_segment_commit_launch",

@@ -1,4 +1,4 @@
-"""Public wrappers for the seven CUDA kernels.
+"""Public wrappers for the seven CUDA kernels and their fused entries.
 
 Dispatch (single source of truth: `dispatch.py`): a CUDA tensor launches
 the hand-written kernel, a CPU tensor runs the plain version in `ref`.
@@ -59,6 +59,17 @@ def batch_score_topk(qs: torch.Tensor, cands: torch.Tensor, ok: torch.Tensor,
     if use_kernel(cands):
         return _bs.batch_score_topk(qs, cands, ok, k)
     return ref.batch_score_topk_ref(qs, cands, ok, k)
+
+
+def batch_score_topk_gather(qs: torch.Tensor, points: torch.Tensor,
+                            cand: torch.Tensor, ok: torch.Tensor, k: int):
+    """`batch_score_topk` of the rows ``points[max(cand, 0)]`` for slot ids
+    ``cand (B, M) int32`` into ``points (N, d)``; on the card the kernel
+    reads the rows itself (the ``(B, M, d)`` gather is never built) and
+    counts one ``batch_score_topk`` launch."""
+    if use_kernel(points):
+        return _bs.batch_score_topk_gather(qs, points, cand, ok, k)
+    return ref.batch_score_topk_gather_ref(qs, points, cand, ok, k)
 
 
 def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,

@@ -14,10 +14,11 @@ from . import _build
 def race_hist(codes: torch.Tensor, W: int) -> torch.Tensor:
     """Histogram of ``codes (B, L) int32`` per row → ``(L, W) int32``,
     ``out[l, w] = #{b : codes[b, l] = w}`` (codes outside [0, W) ignored).
-    The output is zero-filled here and the kernel adds into it."""
+    One launch: the kernel stores every bin, zeros included, so ``out`` is
+    allocated uninitialised."""
     _build.check("race_hist codes", codes, torch.int32, (None, None))
     B, L = codes.shape
-    out = torch.zeros((L, W), dtype=torch.int32, device=codes.device)
-    if B and L and W:
+    out = torch.empty((L, W), dtype=torch.int32, device=codes.device)
+    if L and W:
         _build.launch("race_hist", "race_hist_launch", codes, out, B, L, W)
     return out

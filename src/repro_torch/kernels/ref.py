@@ -110,6 +110,15 @@ def batch_score_topk_ref(qs: torch.Tensor, cands: torch.Tensor,
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
 
+def batch_score_topk_gather_ref(qs: torch.Tensor, points: torch.Tensor,
+                                cand: torch.Tensor, ok: torch.Tensor, k: int):
+    """`batch_score_topk_ref` of the rows ``points[max(cand, 0)]``:
+    ``cand (B, M)`` slot ids into ``points (N, d)``, ``-1`` allowed (it reads
+    row 0, which ``ok`` masks in practice) → ``(d2 (B, k), idx (B, k)
+    int32 into M)``."""
+    return batch_score_topk_ref(qs, points[cand.clamp(min=0).long()], ok, k)
+
+
 def swakde_segment_pass_ref(
     cell_ts: torch.Tensor,    # (R, G, levels, S) int32 — gathered EH rings
     cell_num: torch.Tensor,   # (R, G, levels) int32 — live buckets per level

@@ -20,8 +20,14 @@ sums in another order, the reference kernel's own bound) and gives the
 same bits twice.  `sann_table_commit` is bit-equal to its plain version
 with the ring interval wrapping and with n_kept at or past capacity.  The
 drained SW-AKDE commit is bit-equal to its plain pass loop (caps 0, 1, 3,
-padding and masked-row segments) in one launch a chunk, and `srp_hash`'s
-3xTF32 signs at 0 follow the flip rule.
+padding and masked-row segments) in one launch a chunk, also past 32 EH
+slots (33, 52, 252) with the one-pass entry, and a cell over the shared
+memory a block may use is refused; `srp_hash`'s 3xTF32 signs at 0 follow
+the flip rule.  `batch_score_topk_gather` matches the plain gather + top-k
+with -1 ids, ties across the edges of its 512-candidate chunks, unaligned
+rows, k = 1 and 64, and gives the `(B, M, d)` entry's bits; `race_hist`
+stores every bin in one launch (one code a row, codes out of range, a
+ragged batch, an empty batch, W wide enough for bin tiles).
 """
 import pytest
 import torch
@@ -99,8 +105,17 @@ def test_sann_table_commit_kernel_matches_plain(dev, shape, write_ptr, n_kept):
     assert torch.equal(tables, before)
 
 
+def _assert_topk_equal_or_near_tie(d_k, i_k, d_r, i_r, full):
+    torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-6)
+    a = torch.gather(full, 1, i_k.long())
+    b = torch.gather(full, 1, i_r.long())
+    tie = (a == b) | ((a - b).abs() <= 1e-6 + 1e-5 * b.abs())
+    assert bool(((i_k == i_r) | tie).all())
+
+
 @pytest.mark.parametrize("B,M,d,k", [(37, 10, 5, 1), (37, 10, 5, 10),
-                                     (64, 200, 45, 64), (9, 33, 128, 33)])
+                                     (64, 200, 45, 64), (9, 33, 128, 33),
+                                     (5, 2100, 20, 64), (6, 2100, 16, 1)])
 def test_batch_score_topk_kernel_matches_plain(dev, B, M, d, k):
     g = torch.Generator(device=dev).manual_seed(M)
     qs = torch.randn((B, d), generator=g, device=dev)
@@ -111,13 +126,177 @@ def test_batch_score_topk_kernel_matches_plain(dev, B, M, d, k):
     ok[3] = False                                       # fully masked row
     d_k, i_k = batch_score.batch_score_topk(qs, cands, ok, k)
     d_r, i_r = ref.batch_score_topk_ref(qs, cands, ok, k)
-    torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-6)
     full = torch.where(ok, ref.batch_score_ref(qs, cands), float("inf"))
-    a = torch.gather(full, 1, i_k.long())
-    b = torch.gather(full, 1, i_r.long())
-    tie = (a == b) | ((a - b).abs() <= 1e-6 + 1e-5 * b.abs())
-    assert bool(((i_k == i_r) | tie).all())
+    _assert_topk_equal_or_near_tie(d_k, i_k, d_r, i_r, full)
     assert torch.equal(i_k[3], torch.arange(k, device=dev, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("B,N,M,d,k", [
+    (37, 500, 10, 5, 1), (37, 500, 10, 5, 10),   # d % 4 != 0: scalar loads
+    (64, 3000, 200, 45, 64),                     # M not a multiple of the tile
+    (9, 400, 33, 128, 33),
+    (256, 63_395, 384, 128, 50),                 # the top-50 query shape
+    (256, 63_395, 36, 128, 1),                   # the (c, r) query shape
+    (6, 1000, 3000, 16, 64),                     # six 512-candidate chunks
+    (5, 1000, 5000, 12, 7),                      # ten chunks
+    (4, 300, 4100, 8, 1),                        # k = 1 over a long row
+])
+def test_batch_score_topk_gather_kernel_matches_plain(dev, B, N, M, d, k):
+    """Slot ids with -1s, the same point named at several positions (exact
+    ties, also on both sides of a chunk edge), a fully masked row, and an
+    unaligned point store (the scalar path): equal to the plain gather +
+    top-k within the scorer's tolerance, ids equal away from near-ties, one
+    launch a call."""
+    g = torch.Generator(device=dev).manual_seed(N + M + k)
+    qs = torch.randn((B, d), generator=g, device=dev)
+    points = torch.randn((N, d), generator=g, device=dev)
+    cand = torch.randint(-1, N, (B, M), generator=g, device=dev,
+                         dtype=torch.int32)
+    cand[:, 0] = cand[:, 0].clamp(min=0)
+    edge = 512                                        # the first chunk's end
+    for m in (M // 2, edge - 1, edge, M - 1):
+        if 0 < m < M:
+            cand[:, m] = cand[:, 0]                   # ties, across chunks too
+    ok = (torch.rand((B, M), generator=g, device=dev) < 0.7) & (cand >= 0)
+    ok[:, 0] = True
+    ok[1] = False                                     # fully masked row
+    buf = torch.empty(N * d + 1, device=dev)
+    unaligned = buf[1:].view(N, d)
+    unaligned.copy_(points)
+    for pts in (points, unaligned):
+        ops.reset_launches()
+        d_k, i_k = ops.batch_score_topk_gather(qs, pts, cand, ok, k)
+        assert ops.LAUNCHES["batch_score_topk"] == 1
+        d_r, i_r = ref.batch_score_topk_gather_ref(qs, pts, cand, ok, k)
+        full = torch.where(ok, ref.batch_score_ref(
+            qs, pts[cand.clamp(min=0).long()]), float("inf"))
+        _assert_topk_equal_or_near_tie(d_k, i_k, d_r, i_r, full)
+        assert torch.isinf(d_k[1]).all()
+        assert torch.equal(i_k[1], torch.arange(k, device=dev, dtype=torch.int32))
+    # the (B, M, d) entry on the same kernel body gives the same bits
+    d_o, i_o = batch_score.batch_score_topk(
+        qs, points[cand.clamp(min=0).long()], ok, k)
+    d_g, i_g = batch_score.batch_score_topk_gather(qs, points, cand, ok, k)
+    assert torch.equal(d_o, d_g) and torch.equal(i_o, i_g)
+
+
+def test_batch_score_topk_gather_refuses_bad_arguments(dev):
+    qs, points = torch.zeros((4, 8), device=dev), torch.zeros((10, 8), device=dev)
+    cand = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    ok = torch.ones((4, 6), dtype=torch.bool, device=dev)
+    for bad in (dict(cand=cand.long()), dict(points=points[:, :4]),
+                dict(ok=ok.int()), dict(k=7), dict(k=0), dict(qs=qs.cpu())):
+        args = dict(qs=qs, points=points, cand=cand, ok=ok, k=3) | bad
+        with pytest.raises(ValueError):
+            batch_score.batch_score_topk_gather(**args)
+
+
+@pytest.mark.parametrize("case", ["one_code_per_row", "out_of_range",
+                                  "ragged_batch", "empty_batch", "wide",
+                                  "wide_tiles"])
+def test_race_hist_kernel_edge_cases_one_launch(dev, case):
+    """Every bin is stored (the output is allocated uninitialised, so the
+    allocator's stale -7s must all be overwritten), in one launch a call."""
+    B, L, W = {"one_code_per_row": (4096, 96, 96), "out_of_range": (4096, 96, 96),
+               "ragged_batch": (1001, 13, 40), "empty_batch": (0, 5, 7),
+               "wide": (3000, 3, 20_000), "wide_tiles": (700, 2, 30_000)}[case]
+    g = torch.Generator(device=dev).manual_seed(B + W)
+    codes = torch.randint(0, W, (B, L), generator=g, device=dev, dtype=torch.int32)
+    if case == "one_code_per_row":
+        codes[:] = torch.arange(L, device=dev, dtype=torch.int32) % W
+    if case == "out_of_range":
+        codes[::3] = -1 - codes[::3]
+        codes[1::5] += W
+    if case == "wide_tiles":
+        codes[:, 0] = W - 1
+    stale = torch.full((L, W), -7, dtype=torch.int32, device=dev)
+    del stale
+    ops.reset_launches()
+    got = ops.race_hist(codes, W)
+    assert ops.LAUNCHES["race_hist"] == 1
+    torch.testing.assert_close(got, ref.race_hist_ref(codes, W), rtol=0, atol=0)
+
+
+def _swakde_stream(dev, eps, cap, seed, n_chunks=5, chunk=256, window=600):
+    """A small SW-AKDE stream with one very heavy cell a row, so levels hold
+    more than 32 buckets at ``eps``, through a window that expires inside
+    chunks; yields (state, prep, cfg) before each commit."""
+    from repro_torch.core import swakde
+    cfg = swakde.SWAKDEConfig(L=3, W=8, window=window, eh_eps=eps,
+                              heavy_cell_cap=cap)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = swakde.swakde_init(cfg, dev)
+    for i in range(n_chunks):
+        codes = torch.randint(0, 4, (chunk, cfg.L), generator=g, device=dev,
+                              dtype=torch.int32)
+        codes[: chunk * 3 // 4, 0] = 2                 # a heavy cell
+        codes[::2, 1] = 5
+        mask = torch.arange(chunk, device=dev) < (chunk - 9 if i == 2 else chunk)
+        prep = swakde.swakde_prepare_from_codes(codes, cfg, mask)
+        yield state, prep, cfg, int(mask.sum())
+        state = swakde.swakde_commit_chunk(state, prep, cfg, count=int(mask.sum()))
+
+
+@pytest.mark.parametrize("eps,slots", [(0.0163, 33), (0.01, 52), (0.002, 252)])
+def test_swakde_entries_at_many_slots_match_plain(dev, eps, slots):
+    """Both SW-AKDE entries past 32 EH slots (the shared-memory form): the
+    one-pass entry bit-exact at every pass of the plain loop, the drained
+    commit bit-exact against the plain pass loop in one launch."""
+    from repro_torch.core.util import saturating_add
+    for j, (state, prep, cfg, n_live) in enumerate(
+            _swakde_stream(dev, eps, 0, seed=slots)):
+        eh = cfg.eh_config()
+        assert eh.slots == slots
+        kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+                  n_levels=eh.levels, cap=0)
+        rows = torch.arange(cfg.L, device=dev)[:, None]
+        gcode = prep.seg_code.clamp(max=cfg.W - 1).long()
+        sorted_ts = saturating_add(state.t, prep.order)
+        carry = (state.ts[rows, gcode].contiguous(),
+                 state.num[rows, gcode].contiguous(),
+                 torch.zeros_like(prep.seg_len))
+        fixed = (sorted_ts, prep.seg_first, prep.seg_len)
+        while bool((carry[2] < prep.seg_len).any()):
+            got = ingest_commit.swakde_segment_pass(*carry, *fixed, **kw)
+            want = ref.swakde_segment_pass_ref(*carry, *fixed, **kw)
+            for x, y in zip(got, want):
+                torch.testing.assert_close(x, y, rtol=0, atol=0)
+            carry = got
+        args = (state.ts, state.num, sorted_ts, prep.seg_code, prep.seg_first,
+                prep.seg_len)
+        ops.reset_launches()
+        got = ops.swakde_segment_commit(*args, **kw)
+        assert ops.LAUNCHES["swakde_segment_pass"] == 1
+        want = ref.swakde_segment_commit_ref(*args, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        if j == 4:   # the levels really fill past 32 buckets where they can
+            assert int(got[1].max()) >= min(slots - 1, 48)
+
+
+def test_swakde_cell_over_the_shared_memory_limit_is_refused(dev):
+    """eps = 1e-4 at window 65 536: 18 levels x 5002 slots, a 422 160-byte
+    cell for one warp, over the 232 448 bytes a block may use; both entries
+    raise before launching."""
+    from repro_torch.core import eh as teh
+    e = teh.EHConfig.create(65_536, 1e-4)
+    assert (e.levels, e.slots) == (18, 5002)
+    assert ingest_commit.swakde_cell_bytes(e.levels, e.slots) > \
+        ingest_commit.SMEM_LIMIT
+    i32 = dict(dtype=torch.int32, device=dev)
+    ts = torch.zeros((1, 2, e.levels, e.slots), **i32)
+    num = torch.zeros((1, 2, e.levels), **i32)
+    seg = torch.zeros((1, 1), **i32)
+    sorted_ts = torch.zeros((1, 4), **i32)
+    kw = dict(window=e.window, maxb=e.max_buckets_per_level, n_levels=e.levels)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        ingest_commit.swakde_segment_commit(ts, num, sorted_ts, seg, seg, seg,
+                                            **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        ingest_commit.swakde_segment_pass(ts[:, :1], num[:, :1], seg, sorted_ts,
+                                          seg, seg, **kw)
+    assert ops.LAUNCHES["swakde_segment_pass"] == 0
 
 
 @pytest.mark.parametrize("cap", [0, 1, 3])

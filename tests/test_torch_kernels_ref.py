@@ -169,6 +169,45 @@ def test_batch_score_topk_matches_reference(k):
     np.testing.assert_array_equal(np_(idx_p)[4], np.arange(k))
 
 
+@pytest.mark.parametrize("k", [1, 6])
+def test_batch_score_topk_gather_matches_reference(k):
+    """The gather entry's plain version (`batch_score_topk_gather_ref`, run
+    by the dispatch on CPU tensors) against the reference's
+    ``ops.batch_score_topk`` on ``points[max(cand, 0)]``: -1 slot ids, one
+    point named at several positions (exact ties), a row whose candidates
+    are all one point, a fully masked row and a row with fewer live
+    candidates than k."""
+    rng = np.random.default_rng(11)
+    B, N, M, d = 7, 40, 14, 6
+    qs = rng.normal(size=(B, d)).astype(np.float32)
+    points = rng.normal(size=(N, d)).astype(np.float32)
+    cand = rng.integers(-1, N, size=(B, M)).astype(np.int32)
+    cand[:, 3] = cand[:, 8] = cand[:, 11] = 5            # ties
+    cand[2] = 17                                          # all one point
+    ok = (rng.random((B, M)) < 0.8) & (cand >= 0)
+    ok[:, 3] = ok[:, 8] = True
+    ok[2] = True
+    ok[4] = False                                         # fully masked row
+    ok[5] = False
+    ok[5, 1] = cand[5, 1] >= 0                            # fewer live than k
+    rows = points[np.maximum(cand, 0)]
+    d2_r, idx_r = jops.batch_score_topk(jnp.asarray(qs), jnp.asarray(rows),
+                                        jnp.asarray(ok), k)
+    tops.reset_launches()
+    d2_p, idx_p = tops.batch_score_topk_gather(
+        torch.from_numpy(qs), torch.from_numpy(points), torch.from_numpy(cand),
+        torch.from_numpy(ok), k)
+    assert all(n == 0 for n in tops.LAUNCHES.values())
+    assert d2_p.dtype == torch.float32 and idx_p.dtype == torch.int32
+    assert d2_p.shape == idx_p.shape == (B, k)
+    exact = ((rows.astype(np.float64) - qs[:, None].astype(np.float64)) ** 2).sum(-1)
+    exact = np.where(ok, exact, np.inf)
+    assert_topk_match(d2_p, idx_p, np.asarray(d2_r), np.asarray(idx_r), exact)
+    np.testing.assert_array_equal(np_(idx_p)[2], np.arange(k))
+    assert np.isinf(np_(d2_p)[4]).all()
+    np.testing.assert_array_equal(np_(idx_p)[4], np.arange(k))
+
+
 def _segment_inputs(cap):
     """Pass inputs as `core.swakde.swakde_commit_chunk` builds them, on a
     reference state whose stamps already cross the window."""
@@ -246,6 +285,53 @@ def test_swakde_segment_commit_matches_reference_commit(cap):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert int(st.t) == 122
     assert all(n == 0 for n in tops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("eps,slots", [(0.0163, 33), (0.01, 52)])
+def test_swakde_segment_commit_past_32_slots_matches_reference_commit(eps,
+                                                                      slots):
+    """The drained commit's plain version at EH settings with more than 32
+    ring slots (the card's shared-memory form) against the reference's
+    `swakde_commit_chunk`, bit-exact after every chunk, dead slots included:
+    heavy cells fill levels past 32 buckets where eps allows it (up to
+    k/2 + 1), and 320 stamps through a window of 150 expire inside chunks."""
+    cfg = jswakde.SWAKDEConfig(L=3, W=8, window=150, eh_eps=eps)
+    eh = cfg.eh_config()
+    assert eh.slots == slots
+    kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+              n_levels=eh.levels, cap=0)
+    rng = np.random.default_rng(slots)
+    st = jswakde.swakde_init(cfg)
+    fullest = 0
+    for _ in range(5):
+        codes = rng.integers(0, 4, size=(64, cfg.L)).astype(np.int32)
+        codes[:56, 0] = 1                                # a very heavy cell
+        codes[::2, 2] = 3
+        prep = _prep_codes(jnp.asarray(codes), cfg)
+        t = [torch.from_numpy(np.array(a)) for a in
+             (st.ts, st.num, st.t + prep.order, prep.seg_code,
+              prep.seg_first, prep.seg_len)]
+        got = tref.swakde_segment_commit_ref(*t, **kw)
+        st = _commit(st, prep, cfg)
+        for a, b in zip(got, (st.ts, st.num)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        fullest = max(fullest, int(got[1].max()))
+    assert fullest >= eh.max_buckets_per_level - 1 >= 31
+
+
+def test_swakde_cell_bytes_and_the_shared_memory_limit():
+    """The wrapper's size rule for one warp's cell (`csrc`'s
+    warp_cell_ints): 34 ints a level up to 32 slots, S_pad + 2 a level plus
+    three S_pad buffers past it; at window 65 536 the limit falls between
+    eps 0.0002 and 1e-4."""
+    from repro_torch.core import eh as teh
+    from repro_torch.kernels import ingest_commit
+    assert ingest_commit.swakde_cell_bytes(18, 7) == 4 * 18 * 34
+    assert ingest_commit.swakde_cell_bytes(18, 52) == 4 * (18 * 66 + 3 * 64)
+    fits = [ingest_commit.swakde_cell_bytes(e.levels, e.slots)
+            <= ingest_commit.SMEM_LIMIT for e in
+            (teh.EHConfig.create(65_536, x) for x in (0.1, 0.01, 0.002, 2e-4, 1e-4))]
+    assert fits == [True, True, True, True, False]
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():

@@ -124,6 +124,38 @@ def test_query_topk_batch_matches_reference(built):
     assert (np.asarray(ids_j) >= 0).any()
 
 
+def test_batch_queries_score_through_the_gather_entry(built, monkeypatch):
+    """Both batch query paths score by slot id through
+    ``ops.batch_score_topk_gather`` (k = 1 for (c, r), k = 5 for top-5) and
+    never call the ``(B, M, d)`` entry, whose gather the kernel entry
+    avoids building on the card; the answers still match the reference."""
+    cfg_j, params_j, cfg_t, params_t, per_chunk, xs = built
+    st_t, st_j = per_chunk[-1]
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.batch_score_topk_gather
+
+    def spy(qs, points, cand, ok, k):
+        calls.append((tuple(cand.shape), k, points is st_t.points))
+        return real(qs, points, cand, ok, k)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the (B, M, d) entry was called")
+
+    monkeypatch.setattr(ops, "batch_score_topk_gather", spy)
+    monkeypatch.setattr(ops, "batch_score_topk", refuse)
+    qs = _queries(xs, 5)
+    rt = tsann.sann_query_batch(st_t, params_t, torch.from_numpy(qs), cfg_t)
+    rj = _query(st_j, params_j, jnp.asarray(qs), cfg_j)
+    np.testing.assert_array_equal(np_(rt.index), np.asarray(rj.index))
+    ids_t, _ = tsann.sann_query_topk_batch(st_t, params_t, torch.from_numpy(qs),
+                                           cfg_t, topk=5)
+    ids_j, _ = _query_topk(st_j, params_j, jnp.asarray(qs), cfg_j, 5)
+    assert (np_(ids_t) == np.asarray(ids_j)).mean() > 0.95
+    C = CFG["L"] * CFG["bucket_cap"]
+    assert calls == [((24, min(3 * CFG["L"], C)), 1, True), ((24, C), 5, True)]
+
+
 def test_first_occurrence_mask_both_branches():
     rng = np.random.default_rng(4)
     cand = rng.integers(-1, 40, size=(6, 30)).astype(np.int32)
