@@ -34,7 +34,21 @@ user calls, at full width:
   ``sketch_decode_attn`` kernel.  Then B = 1 over a 131 072-token cache
   whose block signatures are sparse (8 steps from length 131 000), and the
   first 6 layers in fp32 against the CPU plain path (depth cut: the CPU
-  copy of the weights).
+  copy of the weights);
+* **the streaming services** on the same streams, fed from the host through
+  ``ingest_async`` (calls of 65 536 rows, ``max_pending`` 65 536) and
+  ``flush``: ``RetrievalService`` (the S-ANN configuration above,
+  ``ingest_chunk`` 4096, ``query_block`` 2048), ``KDEService`` (p-stable and
+  SRP, then a clock advance) and ``RACEService`` (p-stable, then a turnstile
+  delete of 5 rows), each durable (snapshots every 64 operations, the WAL
+  compacted behind them) and volatile, each recovered by a fresh service
+  from its directory; every state bit-identical to a direct core
+  prepare/commit loop on the card with the same keys, 2048-query batches
+  equal to the core batch queries, two KDE query batches between commits
+  building the grid once, and 16 closed-loop B = 1 clients through the
+  coalescing scheduler, every answer bit-identical.  Each of ``srp_hash``,
+  ``race_hist``, ``batch_score_topk``, ``swakde_segment_pass`` and
+  ``sann_table_scatter`` must launch there.
 
 Keep decisions come from a threefry key on each device.  Kernel launch
 counts are zeroed just before each path and read just after; the SW-AKDE
@@ -49,9 +63,11 @@ PyTorch version on the card at the main path's shapes and timed beside it
 there is one; for the S-ANN table commit, beside the plain PyTorch
 sequence it replaced; for the S-ANN scorer's gather entry, beside the
 ``points[cand]`` gather + ``(B, M, d)`` entry it replaced).  The drained
-SW-AKDE commit also runs past 32 EH slots (eps 0.01, 52 slots) at full
-width, bit-identical to the CPU plain path over chunks that expire, and
-``race_hist`` must run as one device op a call.
+SW-AKDE commit also runs past 32 EH slots at full width over chunks that
+expire: eps 0.01 (52 slots, the cell in shared memory), bit-identical to
+the CPU plain path on every row, and eps 1e-4 (5002 slots, a 422 160-byte
+cell in global memory), bit-identical to it on rows 0-1; ``race_hist``
+must run as one device op a call.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -63,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -83,8 +100,11 @@ ORACLE_SANN_POINTS, ORACLE_KDE_POINTS, ORACLE_KDE_QUERIES = 16_384, 8192, 256
 MERGE_PREFIX = 131_072
 BATCH_KDE_BATCHES, BATCH_KDE_WINDOW = 64, 16
 # the SW-AKDE commit past 32 EH slots: eps 0.01 (52 slots), chunks on the
-# card before the CPU cross-check (16 fill the 65 536 window) and in it
+# card before the CPU cross-check (16 fill the 65 536 window) and in it;
+# eps 1e-4 (5002 slots, the cell in global memory), its CPU cross-check on
+# rows 0-1 only
 SLOTS_EPS, SLOTS_WARM, SLOTS_CROSS = 0.01, 16, 4
+BIG_CELL_EPS, BIG_CELL_CROSS, BIG_CELL_ROWS = 1e-4, 2, 2
 RTOL, ATOL = 1e-5, 1e-6          # fp32 summation order (scorers)
 SRP_FLIP_TOL = 1e-5              # |y| <= tol * |x| * |proj column| may flip
 # LM decode (gemma3-4b at its published width): lm_serve, lm_long, and the
@@ -95,6 +115,14 @@ LM_LONG_S, LM_LONG_LEN, LM_LONG_STEPS = 131_072, 131_000, 8
 LM_CROSS_LAYERS = 6              # one 5:1 local:global period
 SDA_RTOL, SDA_ATOL = 2e-5, 2e-5  # fp32 sums in another order (the reference
                                  # kernel's own bound, tests/test_kernels.py)
+
+# the services phase: rows a producer hands `ingest_async` per call (16
+# chunks), the snapshot cadence, closed-loop clients, rows the RACE delete
+# takes back, and the kernels the services must launch
+SERVICE_CALL_ROWS, SERVICE_SNAPSHOT_EVERY = 65_536, 64
+SERVICE_CLIENTS, SERVICE_DELETE_ROWS, SERVICE_CLOCK_STEPS = 16, 5, 4096
+SERVICE_KERNELS = ("srp_hash", "race_hist", "batch_score_topk",
+                   "swakde_segment_pass", "sann_table_scatter")
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -1581,75 +1609,110 @@ def check_swakde_segment_pass(kde, device):
             "pass_bound_ms": pass_b_ms}
 
 
-def check_swakde_many_slots(kde, device):
-    """The drained SW-AKDE commit past 32 EH slots (its shared-memory form)
-    at full width: eps 0.01 (52 slots), L = W = 96, window 65 536, on the
-    news-like stream's p-stable codes.  16 chunks on the card fill the
-    window; 4 more, whose stamps expire inside them, run on the card and on
-    the CPU plain path from the same state and codes and must give
-    bit-identical state after each.  The last commit is timed by graph."""
+def _real_segments(prep, W):
+    """``prep`` cut to the segments that hit a cell: segments are in code
+    order, so the sentinel ones (code W) form the tail of every row."""
+    g = max(int((prep.seg_code < W).sum(1).max()), 1)
+    return prep._replace(**{f: getattr(prep, f)[:, :g].contiguous()
+                            for f in ("seg_code", "seg_first", "seg_len")})
+
+
+def check_swakde_many_slots(kde, device, eps, warm, cross, cpu_rows=None):
+    """The drained SW-AKDE commit past 32 EH slots at full width (L = W =
+    96, window 65 536, the news-like stream's p-stable codes): eps 0.01
+    (52 slots, the cell in shared memory) and eps 1e-4 (5002 slots, a
+    422 160-byte cell, past the 227 KB a block may use: the cell in global
+    memory).  ``warm`` chunks on the card fill the window; ``cross`` more,
+    whose stamps expire inside them, run on the card and on the CPU plain
+    path from the same state and codes and must give bit-identical state
+    after each: every row, or with ``cpu_rows`` the first ``cpu_rows`` rows
+    (the CPU's plain pass loop at 5002 slots takes seconds a row and a
+    chunk).  The last commit is timed."""
+    import dataclasses
     import torch
     from repro_torch.core import lsh, swakde
     from repro_torch.core.util import saturating_add
     from repro_torch.kernels import ingest_commit, ops, ref
     base = kde["cfg"]
     cfg = swakde.SWAKDEConfig(L=base.L, W=base.W, window=base.window,
-                              eh_eps=SLOTS_EPS)
+                              eh_eps=eps)
     eh = cfg.eh_config()
     params, data = kde["params"], kde["data"]
+    rows = cfg.L if cpu_rows is None else cpu_rows
+    cfg_rows = dataclasses.replace(cfg, L=rows)
 
     def codes(i):
         return lsh.hash_points(params, data[i * CHUNK:(i + 1) * CHUNK])
 
     st = swakde.swakde_init(cfg, device)
     ops.reset_launches()
-    for i in range(SLOTS_WARM):
+    for i in range(warm):
         st = swakde.swakde_commit_chunk(
             st, swakde.swakde_prepare_from_codes(codes(i), cfg), cfg)
     launches = ops.LAUNCHES["swakde_segment_pass"]
-    if launches != SLOTS_WARM:
-        fail(f"the 52-slot commit launched {launches} times in {SLOTS_WARM} "
-             f"chunks")
-    st_cpu = swakde.SWAKDEState(*(x.cpu() for x in st))
-    for i in range(SLOTS_WARM, SLOTS_WARM + SLOTS_CROSS):
+    if launches != warm:
+        fail(f"the {eh.slots}-slot commit launched {launches} times in "
+             f"{warm} chunks")
+    st_cpu = swakde.SWAKDEState(st.ts[:rows].cpu(), st.num[:rows].cpu(),
+                                st.t.cpu())
+    t0 = time.perf_counter()
+    for i in range(warm, warm + cross):
         c = codes(i)
         prep = swakde.swakde_prepare_from_codes(c, cfg)
         last = (st, prep)
         st = swakde.swakde_commit_chunk(st, prep, cfg)
-        st_cpu = swakde.swakde_commit_chunk(
-            st_cpu, swakde.swakde_prepare_from_codes(c.cpu(), cfg), cfg)
-        bad = differing_leaves(st, st_cpu)
+        st_cpu = swakde.swakde_commit_chunk(st_cpu, _real_segments(
+            swakde.swakde_prepare_from_codes(c[:, :rows].cpu(), cfg_rows),
+            cfg.W), cfg_rows)
+        bad = differing_leaves(
+            swakde.SWAKDEState(st.ts[:rows], st.num[:rows], st.t), st_cpu)
         if bad:
             fail(f"the {eh.slots}-slot SW-AKDE commit differs from the CPU "
                  f"plain path in {bad} at chunk {i}")
+    cross_s = time.perf_counter() - t0
     state, prep = last
     args = (state.ts, state.num, saturating_add(state.t, prep.order),
             prep.seg_code, prep.seg_first, prep.seg_len)
+    real = _real_segments(prep, cfg.W)
+    plain_args = args[:3] + (real.seg_code, real.seg_first, real.seg_len)
     kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
               n_levels=eh.levels, cap=cfg.heavy_cell_cap)
     L, W, LV, S = state.ts.shape
     C, G = args[2].shape[1], prep.seg_code.shape[1]
     grid = L * W * (LV * S + LV) * 4
     b_ms, b_by = bound(2 * grid + L * C * 4 + 3 * L * G * 4)
+    form = ingest_commit.swakde_cell_form(LV, S)
 
     def commit():
         return ingest_commit.swakde_segment_commit(*args, **kw)
 
-    return {"name": "swakde_segment_pass", "entry": "swakde_segment_commit",
-            "eh_eps": SLOTS_EPS, "eh_slots": S, "shape": [L, W, LV, S, C],
-            "segments": int((prep.seg_code < W).sum()),
-            "chunks_on_card": SLOTS_WARM + SLOTS_CROSS,
-            "chunks_bit_identical_to_cpu": SLOTS_CROSS,
-            "max_buckets_in_a_level": int(st.num.max()),
-            "cell_bytes_a_warp": ingest_commit.swakde_cell_bytes(LV, S),
-            "max_abs_err": 0,
-            "ms": time_ms(commit, 20, device),
-            "device_ms": device_ms_all(commit, device),
-            "kernel_device_ms": device_ms(commit, "swakde_segment_pass", device),
-            "graph_ms": graph_ms(commit, device),
-            "plain_ms": time_ms(lambda: ref.swakde_segment_commit_ref(*args, **kw),
-                                2, device, warmup=1),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    # the global form allocates a scratch slice per (row, segment) a call:
+    # 20 graph-captured calls would hold 20 of them, so time it by events
+    big = form == "global"
+    row = {"name": "swakde_segment_pass", "entry": "swakde_segment_commit",
+           "eh_eps": eps, "eh_slots": S, "cell_form": form,
+           "shape": [L, W, LV, S, C],
+           "segments": int((prep.seg_code < W).sum()),
+           "chunks_on_card": warm + cross,
+           "chunks_bit_identical_to_cpu": cross,
+           "cpu_rows": f"0-{rows - 1}", "cpu_cross_check_s": cross_s,
+           "max_buckets_in_a_level": int(st.num.max()),
+           "cell_bytes_a_warp": ingest_commit.swakde_cell_bytes(LV, S),
+           "max_abs_err": 0,
+           "ms": time_ms(commit, 3 if big else 20, device,
+                         warmup=1 if big else 2),
+           "device_ms": None if big else device_ms_all(commit, device),
+           "kernel_device_ms": device_ms(commit, "swakde_segment_pass", device,
+                                         iters=3 if big else 20),
+           "graph_ms": None if big else graph_ms(commit, device),
+           # the plain pass loop over the segments that hit a cell (the
+           # sentinels are dropped either way), on the card
+           "plain_ms": time_ms(lambda: ref.swakde_segment_commit_ref(
+               *plain_args, **kw), 1 if big else 2, device, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del st, state, last, args, plain_args
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_cand_score(sann_run, device):
@@ -1798,6 +1861,316 @@ def check_sketch_decode_attn(serve_run, device):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the streaming services (SketchEngine with WAL and snapshots)
+# --------------------------------------------------------------------------
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _feed(svc, host, device, wal_dir=None):
+    """``host`` rows into ``svc`` through ``ingest_async`` calls of
+    SERVICE_CALL_ROWS rows, then ``flush``; returns (seconds, the largest
+    WAL on disk seen between calls, in bytes)."""
+    wal_max = 0
+    t0 = time.perf_counter()
+    for i in range(0, host.shape[0], SERVICE_CALL_ROWS):
+        svc.ingest_async(host[i:i + SERVICE_CALL_ROWS])
+        if wal_dir is not None:
+            wal_max = max(wal_max, _dir_bytes(wal_dir))
+    svc.flush()
+    sync(device)
+    return time.perf_counter() - t0, wal_max
+
+
+def _durable_run(make, host, device, tmp, name, mutate=None):
+    """One service's durable life: a durable service fed ``host`` (then
+    ``mutate``), a volatile one fed the same, and a fresh durable one that
+    recovers the directory.  Returns the three services, the line's
+    numbers and the kernels launched by the two live services."""
+    from repro_torch.kernels import ops
+    from repro_torch.persist import snapshot
+    d = Path(tmp) / name
+    ops.reset_launches()
+    live = make(snapshot_dir=str(d))
+    t_dur, wal_max = _feed(live, host, device, d / "wal")
+    wal_max = max(wal_max, _dir_bytes(d / "wal"))
+    if mutate is not None:
+        mutate(live)
+    live.close()
+    plain = make()
+    t_vol, _ = _feed(plain, host, device)
+    if mutate is not None:
+        mutate(plain)
+    launches = dict(ops.LAUNCHES)
+    rec = make(snapshot_dir=str(d), batch_queries=True, max_wait_us=0.0)
+    t0 = time.perf_counter()
+    replayed = rec.recover()
+    sync(device)
+    t_rec = time.perf_counter() - t0
+    seq = snapshot.latest_seq(d)
+    t0 = time.perf_counter()
+    snapshot.save(Path(tmp) / f"{name}_timed_snapshot", seq, rec.state)
+    t_snap = time.perf_counter() - t0
+    n_chunks = -(-host.shape[0] // CHUNK)
+    record = host[:CHUNK].nbytes
+    wal_end = _dir_bytes(d / "wal")
+    # compaction deletes a segment two snapshots after it was sealed, and
+    # with the queue bounded (max_pending) the log runs at most that far
+    # ahead of the commits: 3 * snapshot_every + max_pending records
+    bound_records = 3 * SERVICE_SNAPSHOT_EVERY + SERVICE_CALL_ROWS // CHUNK + 1
+    if wal_max > bound_records * (record + 4096):
+        fail(f"{name}: {wal_max} bytes of WAL on disk, more than compaction "
+             f"allows ({bound_records} records)")
+    line = {"points": int(host.shape[0]), "chunks": n_chunks,
+            "ingest_s_durable": t_dur,
+            "points_per_s_durable": host.shape[0] / t_dur,
+            "ingest_s_volatile": t_vol,
+            "points_per_s_volatile": host.shape[0] / t_vol,
+            "snapshot_every": SERVICE_SNAPSHOT_EVERY,
+            "max_pending_rows": SERVICE_CALL_ROWS,
+            "newest_snapshot_seq": seq,
+            "snapshot_bytes": _dir_bytes(snapshot.snapshot_path(d, seq)),
+            "snapshot_s": t_snap,
+            "wal_bytes_logged": n_chunks * record,
+            "wal_bound_records": bound_records,
+            "wal_bytes_on_disk_max": wal_max, "wal_bytes_on_disk_end": wal_end,
+            "recovered_records": replayed, "recovery_s": t_rec,
+            "stream_cut": None}
+    shutil.rmtree(Path(tmp) / f"{name}_timed_snapshot", ignore_errors=True)
+    return live, plain, rec, line, launches
+
+
+def _same_state(name, **states):
+    """Fail unless every state equals the first (compared on the CPU)."""
+    (first, a), *rest = states.items()
+    for other, b in rest:
+        bad = differing_leaves(a, b)
+        if bad:
+            fail(f"{name}: {other} state differs from {first} in {bad}")
+
+
+def _same_answers(name, got, want):
+    import numpy as np
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            fail(f"{name}: service answers differ from the core batch answers")
+
+
+def _closed_loop(svc, qs, want, clients=SERVICE_CLIENTS):
+    """``clients`` threads, each issuing sync B = 1 ``query`` calls for its
+    share of ``qs`` back to back; every answer must be the direct one."""
+    import threading
+    import numpy as np
+    lat = [[] for _ in range(clients)]
+    bad = []
+
+    def client(c):
+        for j in range(c, qs.shape[0], clients):
+            t0 = time.perf_counter()
+            res = svc.query(qs[j:j + 1])
+            lat[c].append(time.perf_counter() - t0)
+            if not all(np.array_equal(g, w[j:j + 1]) for g, w in zip(res, want)):
+                bad.append(j)
+
+    before = svc.stats().get("batcher", {"ticks": 0, "queries": 0})
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("closed-loop clients did not finish")
+    if bad:
+        fail(f"coalesced B = 1 answers differ from the direct ones at rows "
+             f"{bad[:8]}")
+    st = svc.stats()["batcher"]
+    ticks = st["ticks"] - before["ticks"]
+    lat_ms = np.sort(np.concatenate([np.asarray(x) for x in lat])) * 1e3
+    return {"clients": clients, "queries": int(qs.shape[0]),
+            "queries_per_s": qs.shape[0] / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "ticks": ticks,
+            "mean_batch": (st["queries"] - before["queries"]) / max(ticks, 1),
+            "bit_identical": True}
+
+
+def phase_services(seed, sann_run, kde_run, device):
+    """The services at full width through their public entry points:
+    `RetrievalService` on the S-ANN stream, `KDEService` (p-stable and SRP)
+    and `RACEService` (with a turnstile delete) on the news-like stream,
+    each durable (snapshots every 64 operations, the WAL compacted behind
+    them) and volatile, each recovered from its directory, every state
+    bit-identical to a direct core prepare/commit loop on the card with the
+    same keys, and the answers equal to the core batch queries; then 16
+    closed-loop B = 1 clients through the coalescing scheduler."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.core import prng, race, sann, swakde
+    from repro_torch.serve import engine, kde_service, race_service, retrieval
+
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    launches = {k: 0 for k in SERVICE_KERNELS}
+    out = {"phase": "services", "tmp_free_bytes": free}
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- S-ANN retrieval at the SIFT1M shape -----------------------------
+        host = sann_run["data"].cpu().numpy()
+        rcfg = retrieval.RetrievalConfig(
+            dim=SANN_DIM, n_max=host.shape[0], eta=0.3, r=sann_run["r"],
+            c=sann_run["c"], w=2.0 * sann_run["r"], L=12, k=6, bucket_cap=32,
+            seed=seed, ingest_chunk=CHUNK, query_block=QUERY_BLOCK, topk=TOPK,
+            snapshot_every=SERVICE_SNAPSHOT_EVERY,
+            max_pending=SERVICE_CALL_ROWS)
+
+        def make_retr(**kw):
+            return retrieval.RetrievalService(dataclasses.replace(rcfg, **kw),
+                                              device=device)
+
+        live, plain, rec, line, got = _durable_run(make_retr, host, device,
+                                                   tmp, "retrieval")
+        params, cfg = live.params, live.cfg
+        key = prng.fold_in(prng.PRNGKey(seed + 1, device), 0)
+        st = sann.sann_empty_state(cfg, device)
+        data = sann_run["data"]
+        for seq, i in enumerate(range(0, host.shape[0], CHUNK)):
+            st = sann.sann_commit_chunk(st, sann.sann_prepare_chunk(
+                params, data[i:i + CHUNK], prng.fold_in(key, seq), cfg), cfg)
+        _same_state("retrieval", direct=st, durable=live.state,
+                    volatile=plain.state, recovered=rec.state)
+        qs_dev = sann_run["queries"][:QUERY_BLOCK]
+        qs = qs_dev.cpu().numpy()
+        want_cr = engine.to_host(sann.sann_query_batch(rec.state, params,
+                                                       qs_dev, cfg))
+        want_topk = engine.to_host(sann.sann_query_topk_batch(
+            rec.state, params, qs_dev, cfg, TOPK))
+        from repro_torch.kernels import ops
+        ops.reset_launches()
+        _same_answers("retrieval (c, r)", rec.query(qs), want_cr)
+        _same_answers("retrieval top-50", rec.query_topk(qs), want_topk)
+        loop = _closed_loop(rec, qs, want_cr)
+        got = {k: got[k] + ops.LAUNCHES[k] for k in got}
+        out["retrieval"] = {**line, "L": cfg.L, "k": cfg.k,
+                            "bucket_cap": cfg.bucket_cap,
+                            "table_mb": st.tables.numel() * 4 / 1e6,
+                            "n_stored": rec.stored,
+                            "queries_bit_identical": 2 * QUERY_BLOCK,
+                            "closed_loop_b1": loop}
+        for k in launches:
+            launches[k] += got[k]
+        for svc in (live, plain, rec):
+            svc.close()
+        out["profile_service"] = make_retr()
+        del st, live, rec
+
+        # --- SW-AKDE at the news-headlines shape, both hash families ---------
+        host = kde_run["data"].cpu().numpy()
+        data = kde_run["data"]
+        kqs_dev = kde_run["queries"][:QUERY_BLOCK]
+        kqs = kqs_dev.cpu().numpy()
+        kparams = {}
+        for family in ("pstable", "srp"):
+            kcfg = kde_service.KDEServiceConfig(
+                dim=KDE_DIM, L=96, W=96, window=65_536, eh_eps=0.1,
+                hash_family=family, k=2, w=4.0, seed=seed, ingest_chunk=CHUNK,
+                query_block=QUERY_BLOCK, snapshot_every=SERVICE_SNAPSHOT_EVERY,
+            max_pending=SERVICE_CALL_ROWS)
+
+            def make_kde(**kw):
+                return kde_service.KDEService(dataclasses.replace(kcfg, **kw),
+                                              device=device)
+
+            # the stream, then a clock advance (a WAL record past the last
+            # snapshot, which falls on the stream's last chunk)
+            target = host.shape[0] + SERVICE_CLOCK_STEPS
+            live, plain, rec, line, got = _durable_run(
+                make_kde, host, device, tmp, f"kde_{family}",
+                mutate=lambda svc: svc.advance_clock(target))
+            params, scfg = live.params, live.sketch_cfg
+            kparams[family] = params
+            st = swakde.swakde_init(scfg, device)
+            for i in range(0, host.shape[0], CHUNK):
+                st = swakde.swakde_update_chunk(st, params, data[i:i + CHUNK],
+                                                scfg)
+            st = st._replace(t=torch.clamp(st.t, min=target))
+            _same_state(f"kde_{family}", direct=st, durable=live.state,
+                        volatile=plain.state, recovered=rec.state)
+            want = engine.to_host(swakde.swakde_query_batch(st, params,
+                                                            kqs_dev, scfg))
+            g0 = rec.grid_computes
+            a, b = rec.query(kqs), rec.query(kqs)
+            if rec.grid_computes != g0 + 1:
+                fail(f"kde_{family}: two query batches between commits "
+                     f"built the grid {rec.grid_computes - g0} times")
+            _same_answers(f"kde_{family}", a, want)
+            _same_answers(f"kde_{family} (cached grid)", b, want)
+            if rec.steps != target or line["recovered_records"] < 1:
+                fail(f"kde_{family}: the clock advance was not replayed")
+            out[f"kde_{family}"] = {**line, "L": 96, "W": 96,
+                                    "window": 65_536, "eh_eps": 0.1,
+                                    "clock_advanced_to": target,
+                                    "grid_builds_for_two_batches": 1,
+                                    "queries_bit_identical": 2 * QUERY_BLOCK}
+            for k in launches:
+                launches[k] += got[k]
+            for svc in (live, plain, rec):
+                svc.close()
+            del st, live, plain, rec
+
+        # --- RACE on the same (p-stable) codes, with a turnstile delete -----
+        ccfg = race_service.RACEServiceConfig(
+            dim=KDE_DIM, L=96, W=96, hash_family="pstable", k=2, w=4.0,
+            seed=seed, ingest_chunk=CHUNK, query_block=QUERY_BLOCK,
+            snapshot_every=SERVICE_SNAPSHOT_EVERY,
+            max_pending=SERVICE_CALL_ROWS)
+        doomed = host[:SERVICE_DELETE_ROWS]
+
+        def make_race(**kw):
+            return race_service.RACEService(dataclasses.replace(ccfg, **kw),
+                                            device=device,
+                                            params=kparams["pstable"])
+
+        live, plain, rec, line, got = _durable_run(
+            make_race, host, device, tmp, "race",
+            mutate=lambda svc: svc.delete(doomed))
+        params = kparams["pstable"]
+        rc = race.race_init(96, 96, device)
+        for i in range(0, host.shape[0], CHUNK):
+            rc = race.race_update_batch(rc, params, data[i:i + CHUNK])
+        rc = race.race_update_batch(rc, params, data[:SERVICE_DELETE_ROWS],
+                                    sign=-1)
+        _same_state("race", direct=rc, durable=live.state, volatile=plain.state,
+                    recovered=rec.state)
+        if rec.count != host.shape[0] - SERVICE_DELETE_ROWS:
+            fail(f"race: signed count {rec.count} after the delete")
+        _same_answers("race", rec.query(kqs), engine.to_host(
+            race.race_query_batch(rc, params, kqs_dev)))
+        out["race"] = {**line, "L": 96, "W": 96,
+                       "deleted_rows": SERVICE_DELETE_ROWS,
+                       "delete_replayed": line["recovered_records"] > 0,
+                       "queries_bit_identical": QUERY_BLOCK}
+        for k in launches:
+            launches[k] += got[k]
+        for svc in (live, plain, rec):
+            svc.close()
+        del rc, live, plain, rec
+
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        fail(f"the services launched no {missing}")
+    svc = out.pop("profile_service")
+    emit({**out, "launches": launches})
+    return {"launches": launches, "retrieval": svc,
+            "host": sann_run["data"][:8 * CHUNK].cpu().numpy()}
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler over short main-path windows)
 # --------------------------------------------------------------------------
 
@@ -1829,14 +2202,16 @@ def profile_window(name, fn, device, top=10):
           "device_busy_share": busy_us / wall_us if wall_us else None,
           "device_ops": sum(r[2] for r in rows),
           "host_waits": waits,
-          "copies_to_device": sum(r[2] for r in rows if "HtoD" in r[0]),
+          # copies by name, whether or not the profiler gave them a time
+          "copies_to_device": sum(e.count for e in events if "HtoD" in e.key),
           "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": c}
                              for k, us, c in rows[:top]]}
     emit(row)
     return row
 
 
-def phase_profile(sann_run, kde_run, srp_run, serve_run, device, n_chunks=4):
+def phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device,
+                  n_chunks=4):
     from repro_torch.core import prng, race, sann, swakde
     s, k = sann_run, kde_run
     qs = s["queries"][:QUERY_BLOCK]
@@ -1873,6 +2248,12 @@ def phase_profile(sann_run, kde_run, srp_run, serve_run, device, n_chunks=4):
             st = swakde.swakde_update_chunk(st, srp_run["params"], x,
                                             srp_run["cfg"])
 
+    def sann_service_ingest():
+        # the same 4 chunks from the host through a volatile
+        # RetrievalService: one ingest_async call, then flush
+        services_run["retrieval"].ingest(
+            services_run["host"][:n_chunks * CHUNK])
+
     def sann_keep_draws():
         # the threefry keep draws of `sann_ingest`'s 4 chunks alone
         for _ in range(n_chunks):
@@ -1890,6 +2271,7 @@ def phase_profile(sann_run, kde_run, srp_run, serve_run, device, n_chunks=4):
         r["tok"] = logits.argmax(-1)
 
     for name, fn in (("sann_ingest_4_chunks", sann_ingest),
+                     ("sann_service_ingest_4_chunks", sann_service_ingest),
                      ("sann_keep_draws_4_chunks", sann_keep_draws),
                      ("sann_query_block_2048", sann_queries),
                      ("swakde_race_ingest_4_chunks", kde_ingest),
@@ -1903,6 +2285,11 @@ def phase_profile(sann_run, kde_run, srp_run, serve_run, device, n_chunks=4):
         if "swakde" in name and "ingest" in name and row["host_waits"] != 2:
             fail(f"profile window {name}: {row['host_waits']} host waits, "
                  f"expected 2 (the commit must not sync the host)")
+        # the service waits once a commit (its pacing), as the reference's
+        # block_until_ready does, and no more
+        if "service" in name and row["host_waits"] > 2 + n_chunks:
+            fail(f"profile window {name}: {row['host_waits']} host waits for "
+                 f"{n_chunks} commits")
 
 
 def main(argv=None) -> int:
@@ -1948,12 +2335,17 @@ def main(argv=None) -> int:
             *check_cand_score(sann_run, device),
             *check_batch_score_topk(sann_run, device),
             check_swakde_segment_pass(kde_run, device),
-            check_swakde_many_slots(kde_run, device),
+            check_swakde_many_slots(kde_run, device, SLOTS_EPS, SLOTS_WARM,
+                                    SLOTS_CROSS),
+            check_swakde_many_slots(kde_run, device, BIG_CELL_EPS, SLOTS_WARM,
+                                    BIG_CELL_CROSS, cpu_rows=BIG_CELL_ROWS),
             *check_sann_table_scatter(sann_run, device),
             *check_sketch_decode_attn(serve_run, device)]
     for row in rows:
         emit({"phase": "kernel_check", **row})
-    phase_profile(sann_run, kde_run, srp_run, serve_run, device)
+    services_run = phase_services(args.seed, sann_run, kde_run, device)
+    phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device)
+    services_run["retrieval"].close()
     summary = []
     for row in rows:
         if row["name"] == "batch_score_topk" and (
@@ -1961,7 +2353,8 @@ def main(argv=None) -> int:
             continue        # the (c, r) shape and the (B, M, d) entry; in
                             # their kernel_check lines
         if row.get("eh_slots"):
-            continue        # the 52-slot commit; in its kernel_check line
+            continue        # the 52- and 5002-slot commits; in their
+                            # kernel_check lines
         if row["name"] == "cand_score" and row["shape"][0] == 3 * sann_run["cfg"].L:
             continue        # the 3L shape; reported in its kernel_check line
         if row["name"] == "sketch_decode_attn" and row["case"] != "lm_serve":
@@ -1972,6 +2365,7 @@ def main(argv=None) -> int:
         summary.append({
             "name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
+            "services_launches": services_run["launches"].get(row["name"], 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -34,7 +34,7 @@
 //
 // Design: one warp per segment; lane j owns ring slots j, j + 32, ... of
 // every level (ceil(S / 32) of them).  The cell lives in the warp's slice of
-// shared memory for all passes.
+// shared memory (or, past 227 KB, of a global scratch buffer) for all passes.
 //   1. expiry at the segment's first remaining arrival: the live mask of a
 //      level is one ballot per 32 slots, its count the sum of their
 //      popcounts, the oldest live stamp a warp min over every slot a lane
@@ -48,20 +48,29 @@
 //      arrivals first, then the old ring shifted) and the carried-up stamps
 //      (an explicit prefix of ring/P entries, then a stride-doubled window
 //      into the segment's own stamps).  Only the strided tail reads memory.
-// Two forms of steps 1 and 3, chosen per launch:
+// Three forms, chosen per launch:
 //   * S <= 32 (the common case, e.g. eps = 0.1 gives 7 slots): one slot a
 //     lane; the ring is read from shared memory, the carried prefix P lives
 //     in a register and every ring or P lookup is a __shfl_sync to the
 //     owning lane.  Shared memory a warp: LV * 34 ints.
-//   * S > 32: the lookups read the owning slot from shared memory, where P
-//     (double-buffered across levels) and the new ring (staged, then copied
-//     over the old one after a __syncwarp) also live.  Shared memory a warp:
-//     LV * (S_pad + 2) + 3 * S_pad ints, S_pad = 32 * ceil(S / 32).
-// A block holds up to 4 warps over one row, fewer when their cells do not
-// fit in 227 KB (above 48 KB the launch raises the kernel's dynamic
-// shared-memory limit); a cell larger than 227 KB is refused by the
-// wrapper.  Divisions that can see a negative operand floor, and the int32
-// index arithmetic wraps as the reference's.
+//   * S > 32, the cell in shared memory: the lookups read the owning slot
+//     from shared memory, where P (double-buffered across levels) and the
+//     new ring (staged, then copied over the old one after a __syncwarp)
+//     also live.  A warp's cell: LV * (S_pad + 2) + 3 * S_pad ints,
+//     S_pad = 32 * ceil(S / 32).  A block holds up to 4 warps over one row,
+//     fewer when their cells do not fit in 227 KB (above 48 KB the launch
+//     raises the kernel's dynamic shared-memory limit).
+//   * S > 32, the cell in global memory: the same code and layout, on the
+//     warp's own slice of a scratch buffer that the wrapper allocates once a
+//     call (one slice per (row, segment)), for a cell larger than the
+//     232 448 bytes a block may use (at window 65 536, eps 1e-4: 18 levels x
+//     5002 slots, 422 160 bytes).  __syncwarp orders the lanes' global
+//     writes and reads as it does in shared memory; the slice stays hot in
+//     L1/L2 across a warp's passes.  4 warps a block, no shared memory.
+// The wrapper chooses the form by the cell's size before the launch
+// (`kernels.ingest_commit.swakde_cell_form`): a non-null scratch pointer
+// selects the global form.  Divisions that can see a negative operand
+// floor, and the int32 index arithmetic wraps as the reference's.
 #include "common.cuh"
 
 namespace {
@@ -79,9 +88,15 @@ struct Geometry {
   int C, S, Sp, LV, window, maxb, n_levels, cap;
 };
 
-// Ints of shared memory a warp's cell takes (see the design note).
-__host__ __device__ __forceinline__ int warp_cell_ints(const Geometry& g) {
-  return g.S <= 32 ? g.LV * 34 : g.LV * (g.Sp + 2) + 3 * g.Sp;
+// Ints a warp's cell takes in the S > 32 layout (shared or global).
+__host__ __device__ __forceinline__ int wide_cell_ints(const Geometry& g) {
+  return g.LV * (g.Sp + 2) + 3 * g.Sp;
+}
+
+// Ints of memory a warp's cell takes in a form (see the design note).
+__host__ __device__ __forceinline__ int warp_cell_ints(const Geometry& g,
+                                                       bool wide) {
+  return wide ? wide_cell_ints(g) : g.LV * 34;
 }
 
 // Oldest-first queue of arrivals at one level, looked up at a per-lane
@@ -143,8 +158,9 @@ __device__ __forceinline__ int pass_length(int dn, int len, int first,
   return min(p, limit);
 }
 
-// One pass over the warp's cell in shared memory: ts (LV x Sp), num and m0s
-// (LV each), and for S > 32 the scratch P0, P1 and staged ring (Sp each).
+// One pass over the warp's cell (in shared memory or its global slice): ts
+// (LV x Sp), num and m0s (LV each), and for S > 32 the scratch P0, P1 and
+// staged ring (Sp each).
 // Returns the arrivals consumed.
 template <bool kWide>
 __device__ int settle_pass(int* ts, int* num, int* m0s, int* scratch, int dn,
@@ -179,7 +195,7 @@ __device__ int settle_pass(int* ts, int* num, int* m0s, int* scratch, int dn,
   // 3. per-level closed form.
   int np = 0, b = clampi(start, 0, g.C - 1), stride = 1, rr = p;
   int P = 0;                                   // S <= 32: lane s holds P[s]
-  int* Pc = scratch;                           // S > 32: P in shared memory,
+  int* Pc = scratch;                           // S > 32: P in the cell,
   int* Pn = scratch + g.Sp;                    // the next level's P,
   int* staged = scratch + 2 * g.Sp;            // and the new ring
   for (int l = 0; l < g.LV; ++l) {
@@ -230,7 +246,9 @@ __device__ int settle_pass(int* ts, int* num, int* m0s, int* scratch, int dn,
 // kDrain = false: one pass over gathered cells (R, G, ...), every segment,
 // done read and written.  kDrain = true: the commit over the state grid
 // (R, W, ...), passes until the segment is drained, sentinels skipped.
-template <bool kDrain, bool kWide>
+// kGlobal: the cell lives in scratch[(r * G + seg) * wide_cell_ints] instead
+// of shared memory (kWide layout).
+template <bool kDrain, bool kWide, bool kGlobal>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 swakde_segment_pass_kernel(const int* __restrict__ cell_ts,
                            const int* __restrict__ cell_num,
@@ -240,7 +258,8 @@ swakde_segment_pass_kernel(const int* __restrict__ cell_ts,
                            const int* __restrict__ seg_first,
                            const int* __restrict__ seg_len,
                            int* __restrict__ ts_out, int* __restrict__ num_out,
-                           int* __restrict__ done_out, int G, int W,
+                           int* __restrict__ done_out,
+                           int* scratch_all, int G, int W,
                            Geometry g) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5;
@@ -249,7 +268,8 @@ swakde_segment_pass_kernel(const int* __restrict__ cell_ts,
   if (seg >= G) return;  // warp-uniform
   const int r = blockIdx.y;
   const long long rg = static_cast<long long>(r) * G + seg;
-  int* ts = smem + warp * warp_cell_ints(g);
+  int* ts = kGlobal ? scratch_all + rg * wide_cell_ints(g)
+                    : smem + warp * warp_cell_ints(g, kWide);
   int* num = ts + g.LV * g.Sp;
   int* m0s = num + g.LV;
   int* scratch = m0s + g.LV;
@@ -295,20 +315,25 @@ swakde_segment_pass_kernel(const int* __restrict__ cell_ts,
   if (!kDrain && lane == 0) done_out[rg] = dn;
 }
 
-template <bool kDrain, bool kWide>
+template <bool kDrain, bool kWide, bool kGlobal>
 int launch_form(const int* cell_ts, const int* cell_num, const int* done,
                 const int* sorted_ts, const int* seg_code, const int* seg_first,
                 const int* seg_len, int* ts_out, int* num_out, int* done_out,
-                int R, int G, int W, const Geometry& g, void* stream) {
-  const size_t cell = static_cast<size_t>(warp_cell_ints(g)) * sizeof(int);
-  if (cell > static_cast<size_t>(kSmemLimit))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = static_cast<int>(
-      cell * kMaxWarps <= static_cast<size_t>(kSmemLimit)
-          ? kMaxWarps
-          : static_cast<size_t>(kSmemLimit) / cell);
-  const size_t smem = cell * warps;
-  auto kernel = swakde_segment_pass_kernel<kDrain, kWide>;
+                int* scratch, int R, int G, int W, const Geometry& g,
+                void* stream) {
+  int warps = kMaxWarps;
+  size_t smem = 0;
+  if (!kGlobal) {
+    const size_t cell =
+        static_cast<size_t>(warp_cell_ints(g, kWide)) * sizeof(int);
+    if (cell > static_cast<size_t>(kSmemLimit))
+      return static_cast<int>(cudaErrorInvalidValue);
+    warps = static_cast<int>(cell * kMaxWarps <= static_cast<size_t>(kSmemLimit)
+                                 ? kMaxWarps
+                                 : static_cast<size_t>(kSmemLimit) / cell);
+    smem = cell * warps;
+  }
+  auto kernel = swakde_segment_pass_kernel<kDrain, kWide, kGlobal>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,24 +343,33 @@ int launch_form(const int* cell_ts, const int* cell_num, const int* done,
   dim3 grid((G + warps - 1) / warps, R);
   kernel<<<grid, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       cell_ts, cell_num, done, sorted_ts, seg_code, seg_first, seg_len, ts_out,
-      num_out, done_out, G, W, g);
+      num_out, done_out, scratch, G, W, g);
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch == nullptr: the cell in shared memory (refused past 227 KB);
+// otherwise the global form on R * G slices of wide_cell_ints(g) ints.
 template <bool kDrain>
 int launch(const int* cell_ts, const int* cell_num, const int* done,
            const int* sorted_ts, const int* seg_code, const int* seg_first,
-           const int* seg_len, int* ts_out, int* num_out, int* done_out, int R,
-           int G, int W, const Geometry& g, void* stream) {
+           const int* seg_len, int* ts_out, int* num_out, int* done_out,
+           int* scratch, int R, int G, int W, const Geometry& g,
+           void* stream) {
   if (g.S < 1 || g.LV < 1 || g.C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (scratch != nullptr)
+    return launch_form<kDrain, true, true>(cell_ts, cell_num, done, sorted_ts,
+                                           seg_code, seg_first, seg_len, ts_out,
+                                           num_out, done_out, scratch, R, G, W,
+                                           g, stream);
   if (g.S <= 32)
-    return launch_form<kDrain, false>(cell_ts, cell_num, done, sorted_ts,
-                                      seg_code, seg_first, seg_len, ts_out,
-                                      num_out, done_out, R, G, W, g, stream);
-  return launch_form<kDrain, true>(cell_ts, cell_num, done, sorted_ts,
-                                   seg_code, seg_first, seg_len, ts_out,
-                                   num_out, done_out, R, G, W, g, stream);
+    return launch_form<kDrain, false, false>(
+        cell_ts, cell_num, done, sorted_ts, seg_code, seg_first, seg_len,
+        ts_out, num_out, done_out, nullptr, R, G, W, g, stream);
+  return launch_form<kDrain, true, false>(cell_ts, cell_num, done, sorted_ts,
+                                          seg_code, seg_first, seg_len, ts_out,
+                                          num_out, done_out, nullptr, R, G, W,
+                                          g, stream);
 }
 
 Geometry geometry(int C, int S, int LV, int window, int maxb, int n_levels,
@@ -347,24 +381,30 @@ Geometry geometry(int C, int S, int LV, int window, int maxb, int n_levels,
 }  // namespace
 
 // One pass over gathered cells (R, G, LV, S): the reference's contract.
+// scratch: null, or R * G * (LV * (S_pad + 2) + 3 * S_pad) ints for the
+// global form.
 extern "C" int swakde_segment_pass_launch(
     const int* cell_ts, const int* cell_num, const int* done,
     const int* sorted_ts, const int* seg_first, const int* seg_len,
-    int* ts_out, int* num_out, int* done_out, int R, int G, int LV, int S,
-    int C, int window, int maxb, int n_levels, int cap, void* stream) {
+    int* ts_out, int* num_out, int* done_out, int* scratch, int R, int G,
+    int LV, int S, int C, int window, int maxb, int n_levels, int cap,
+    void* stream) {
   const Geometry g = geometry(C, S, LV, window, maxb, n_levels, cap);
   return launch<false>(cell_ts, cell_num, done, sorted_ts, nullptr, seg_first,
-                       seg_len, ts_out, num_out, done_out, R, G, 0, g, stream);
+                       seg_len, ts_out, num_out, done_out, scratch, R, G, 0, g,
+                       stream);
 }
 
 // The drained commit: reads cells from the grid (R, W, LV, S) by seg_code
 // and writes the settled ones into ts_out / num_out (a copy of the grid).
+// scratch as for the one-pass entry (R * G slices).
 extern "C" int swakde_segment_commit_launch(
     const int* ts, const int* num, const int* sorted_ts, const int* seg_code,
     const int* seg_first, const int* seg_len, int* ts_out, int* num_out,
-    int R, int G, int W, int LV, int S, int C, int window, int maxb,
-    int n_levels, int cap, void* stream) {
+    int* scratch, int R, int G, int W, int LV, int S, int C, int window,
+    int maxb, int n_levels, int cap, void* stream) {
   const Geometry g = geometry(C, S, LV, window, maxb, n_levels, cap);
   return launch<true>(ts, num, nullptr, sorted_ts, seg_code, seg_first,
-                      seg_len, ts_out, num_out, nullptr, R, G, W, g, stream);
+                      seg_len, ts_out, num_out, nullptr, scratch, R, G, W, g,
+                      stream);
 }

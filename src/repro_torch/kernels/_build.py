@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -45,9 +46,8 @@ SIGNATURES = {
                                  I, I, I, I, I, P],
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
     "batch_score_topk_gather_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
-    "swakde_segment_pass_launch": [P, P, P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, I, P],
-    "swakde_segment_commit_launch": [P] * 8 + [I] * 10 + [P],
+    "swakde_segment_pass_launch": [P] * 10 + [I] * 9 + [P],
+    "swakde_segment_commit_launch": [P] * 9 + [I] * 10 + [P],
     "cand_score_launch": [P, P, P, I, I, P],
     "srp_hash_launch": [P, P, P, P, I, I, I, I, I, P],
     "sketch_decode_attn_launch": [P] * 8 + [I] * 11 + [F] * 3 + [P],
@@ -60,6 +60,10 @@ LAUNCHES = {"race_hist": 0, "sann_table_scatter": 0, "batch_score_topk": 0,
 _LIB: Optional[ctypes.CDLL] = None
 _ENTRIES: dict = {}
 BUILD_INFO: dict = {}
+# The services launch kernels from several threads (prepare, commit,
+# queries): one lock for the first build, one for the launch counts.
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -124,33 +128,37 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
-    if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = handle
+    with _BUILD_LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = handle
     return _LIB
 
 
 def launch(name: str, entry_name: str, *args) -> None:
     """Call C entry ``entry_name`` with ``args`` (tensors become device
-    pointers, floats stay floats, anything else becomes an int) on the
-    current stream, raise on a CUDA error, and count one launch of kernel
-    ``name`` (an entry that launches several kernels counts once)."""
+    pointers, None a null pointer, floats stay floats, anything else
+    becomes an int) on the current stream, raise on a CUDA error, and count
+    one launch of kernel ``name`` (an entry that launches several kernels
+    counts once)."""
     fn = _ENTRIES.get(entry_name)
     if fn is None:                      # resolved once a process
         fn = _ENTRIES[entry_name] = getattr(lib(), entry_name)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor)
-            else a if isinstance(a, float) else int(a) for a in args]
+            else a if isinstance(a, float) or a is None else int(a)
+            for a in args]
     # the current stream's handle, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _shape_ok(got, want) -> bool:

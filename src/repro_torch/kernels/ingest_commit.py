@@ -3,8 +3,9 @@
 * ``swakde_segment_pass`` (``csrc/swakde_segment_pass.cu``) replaces the
   reference's Pallas ``ingest_commit.swakde_segment_pass``: one warp per
   (row, segment) runs the closed-form DGIM cascade settle, lane j owning
-  ring slots j, j + 32, ... (any number of EH slots whose cell fits in one
-  SM's shared memory).
+  ring slots j, j + 32, ... (any number of EH slots: a cell that fits in
+  a block's shared memory stays there, a larger one lives in a global
+  scratch slice per warp, `swakde_cell_form`).
 * ``swakde_segment_commit`` (the same source and device code) is the
   SW-AKDE commit of a chunk: each warp reads its hit cell from the state
   grid, runs passes until its segment is drained, and writes the settled
@@ -30,7 +31,7 @@ SMEM_LIMIT = 232_448    # bytes of shared memory one block may use (H100)
 
 
 def swakde_cell_bytes(levels: int, slots: int) -> int:
-    """Shared memory one warp's cell takes in ``csrc/swakde_segment_pass.cu``
+    """Memory one warp's cell takes in ``csrc/swakde_segment_pass.cu``
     (``warp_cell_ints``): ``levels * 34`` ints up to 32 slots, else
     ``levels * (S_pad + 2) + 3 * S_pad`` with ``S_pad = 32 * ceil(S / 32)``."""
     if slots <= 32:
@@ -39,14 +40,24 @@ def swakde_cell_bytes(levels: int, slots: int) -> int:
     return 4 * (levels * (s_pad + 2) + 3 * s_pad)
 
 
-def _check_cell_fits(name: str, levels: int, slots: int) -> None:
-    need = swakde_cell_bytes(levels, slots)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: an EH cell of {levels} levels x {slots} slots needs "
-            f"{need} bytes of shared memory for one warp, more than the "
-            f"{SMEM_LIMIT} one block may use; raise eh_eps or shorten the "
-            f"window")
+def swakde_cell_form(levels: int, slots: int) -> str:
+    """Where the kernel keeps a warp's cell: ``"registers"`` (up to 32
+    slots: the ring in shared memory, the carried prefix in a register),
+    ``"shared"`` (more slots, the cell fits in the shared memory a block may
+    use) or ``"global"`` (a larger cell, in a scratch slice of its own)."""
+    if slots <= 32:
+        return "registers"
+    return "shared" if swakde_cell_bytes(levels, slots) <= SMEM_LIMIT \
+        else "global"
+
+
+def _cell_scratch(cells: int, levels: int, slots: int, device):
+    """The global form's scratch (one cell slice per (row, segment)), from
+    the caching allocator, or None when the cell fits in shared memory."""
+    if swakde_cell_form(levels, slots) != "global":
+        return None
+    return torch.empty(cells * swakde_cell_bytes(levels, slots) // 4,
+                       dtype=torch.int32, device=device)
 
 
 def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
@@ -64,15 +75,15 @@ def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
     _build.check("swakde_segment_pass sorted_ts", sorted_ts, i32, (R, C))
     _build.check("swakde_segment_pass seg_first", seg_first, i32, (R, G))
     _build.check("swakde_segment_pass seg_len", seg_len, i32, (R, G))
-    _check_cell_fits("swakde_segment_pass", LV, S)
     if R * G == 0:
         return cell_ts.clone(), cell_num.clone(), done.clone()
     ts_out = torch.empty_like(cell_ts)
     num_out = torch.empty_like(cell_num)
     done_out = torch.empty_like(done)
+    scratch = _cell_scratch(R * G, LV, S, cell_ts.device)
     _build.launch("swakde_segment_pass", "swakde_segment_pass_launch",
                   cell_ts, cell_num, done, sorted_ts, seg_first, seg_len,
-                  ts_out, num_out, done_out,
+                  ts_out, num_out, done_out, scratch,
                   R, G, LV, S, C, window, maxb, n_levels, cap)
     return ts_out, num_out, done_out
 
@@ -93,12 +104,11 @@ def swakde_segment_commit(ts, num, sorted_ts, seg_code, seg_first, seg_len,
     _build.check_all("swakde_segment_commit",
                      {"seg_code": seg_code, "seg_first": seg_first,
                       "seg_len": seg_len}, i32, (L, G))
-    _check_cell_fits("swakde_segment_commit", LV, S)
     ts_out, num_out = ts.clone(), num.clone()
     if L * G:
         _build.launch("swakde_segment_pass", "swakde_segment_commit_launch",
                       ts, num, sorted_ts, seg_code, seg_first, seg_len,
-                      ts_out, num_out,
+                      ts_out, num_out, _cell_scratch(L * G, LV, S, ts.device),
                       L, G, W, LV, S, C, window, maxb, n_levels, cap)
     return ts_out, num_out
 

@@ -21,8 +21,8 @@ same bits twice.  `sann_table_commit` is bit-equal to its plain version
 with the ring interval wrapping and with n_kept at or past capacity.  The
 drained SW-AKDE commit is bit-equal to its plain pass loop (caps 0, 1, 3,
 padding and masked-row segments) in one launch a chunk, also past 32 EH
-slots (33, 52, 252) with the one-pass entry, and a cell over the shared
-memory a block may use is refused; `srp_hash`'s 3xTF32 signs at 0 follow
+slots (33, 52, 252) with the one-pass entry, and past the shared memory a
+block may use (eps 1e-4, 5002 slots: the cell in global memory); `srp_hash`'s 3xTF32 signs at 0 follow
 the flip rule.  `batch_score_topk_gather` matches the plain gather + top-k
 with -1 ids, ties across the edges of its 512-candidate chunks, unaligned
 rows, k = 1 and 64, and gives the `(B, M, d)` entry's bits; `race_hist`
@@ -274,29 +274,50 @@ def test_swakde_entries_at_many_slots_match_plain(dev, eps, slots):
             assert int(got[1].max()) >= min(slots - 1, 48)
 
 
-def test_swakde_cell_over_the_shared_memory_limit_is_refused(dev):
+def test_swakde_cell_past_shared_memory_runs_in_global_memory(dev):
     """eps = 1e-4 at window 65 536: 18 levels x 5002 slots, a 422 160-byte
-    cell for one warp, over the 232 448 bytes a block may use; both entries
-    raise before launching."""
-    from repro_torch.core import eh as teh
-    e = teh.EHConfig.create(65_536, 1e-4)
-    assert (e.levels, e.slots) == (18, 5002)
-    assert ingest_commit.swakde_cell_bytes(e.levels, e.slots) > \
-        ingest_commit.SMEM_LIMIT
-    i32 = dict(dtype=torch.int32, device=dev)
-    ts = torch.zeros((1, 2, e.levels, e.slots), **i32)
-    num = torch.zeros((1, 2, e.levels), **i32)
-    seg = torch.zeros((1, 1), **i32)
-    sorted_ts = torch.zeros((1, 4), **i32)
-    kw = dict(window=e.window, maxb=e.max_buckets_per_level, n_levels=e.levels)
-    ops.reset_launches()
-    with pytest.raises(ValueError, match="shared memory"):
-        ingest_commit.swakde_segment_commit(ts, num, sorted_ts, seg, seg, seg,
-                                            **kw)
-    with pytest.raises(ValueError, match="shared memory"):
-        ingest_commit.swakde_segment_pass(ts[:, :1], num[:, :1], seg, sorted_ts,
-                                          seg, seg, **kw)
-    assert ops.LAUNCHES["swakde_segment_pass"] == 0
+    cell for one warp, over the 232 448 bytes a block may use, so both
+    entries keep it in a global scratch slice.  On a small grid (L = 3,
+    W = 8) through five chunks of 16 384, the last of which expires inside
+    the window: the one-pass entry bit-exact at every pass of the plain
+    loop, the drained commit bit-exact against the plain pass loop in one
+    launch a chunk."""
+    from repro_torch.core.util import saturating_add
+    for j, (state, prep, cfg, n_live) in enumerate(_swakde_stream(
+            dev, 1e-4, 0, seed=5002, chunk=16_384, window=65_536)):
+        eh = cfg.eh_config()
+        assert (eh.levels, eh.slots) == (18, 5002)
+        assert ingest_commit.swakde_cell_bytes(eh.levels, eh.slots) > \
+            ingest_commit.SMEM_LIMIT
+        assert ingest_commit.swakde_cell_form(eh.levels, eh.slots) == "global"
+        kw = dict(window=cfg.window, maxb=eh.max_buckets_per_level,
+                  n_levels=eh.levels, cap=0)
+        rows = torch.arange(cfg.L, device=dev)[:, None]
+        gcode = prep.seg_code.clamp(max=cfg.W - 1).long()
+        sorted_ts = saturating_add(state.t, prep.order)
+        carry = (state.ts[rows, gcode].contiguous(),
+                 state.num[rows, gcode].contiguous(),
+                 torch.zeros_like(prep.seg_len))
+        fixed = (sorted_ts, prep.seg_first, prep.seg_len)
+        passes = 0
+        while bool((carry[2] < prep.seg_len).any()):
+            got = ingest_commit.swakde_segment_pass(*carry, *fixed, **kw)
+            want = ref.swakde_segment_pass_ref(*carry, *fixed, **kw)
+            for x, y in zip(got, want):
+                torch.testing.assert_close(x, y, rtol=0, atol=0)
+            carry = got
+            passes += 1
+        args = (state.ts, state.num, sorted_ts, prep.seg_code, prep.seg_first,
+                prep.seg_len)
+        ops.reset_launches()
+        got = ops.swakde_segment_commit(*args, **kw)
+        assert ops.LAUNCHES["swakde_segment_pass"] == 1
+        want = ref.swakde_segment_commit_ref(*args, **kw)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+        if j == 4:   # stamps expire inside the last chunk: several passes,
+            assert passes > 1                      # and levels hold > 227 KB
+            assert int(got[1].max()) > 2000
 
 
 @pytest.mark.parametrize("cap", [0, 1, 3])
@@ -583,3 +604,169 @@ def test_sketch_decode_attn_edge_cases(dev, monkeypatch):
                                               1024, 64)
     with pytest.raises(ValueError):
         sketch_decode_attn.sketch_decode_attn(q, k, v, ids.long(), n_live, 1024, 64)
+
+
+# --- the streaming services on the card ------------------------------------
+
+_SVC = {"retrieval": dict(dim=8, n_max=64, eta=0.1, r=0.4, c=2.0, w=1.0, L=6,
+                          k=3, bucket_cap=4, ingest_chunk=64, query_block=16,
+                          topk=8),
+        "kde_srp": dict(dim=8, L=6, W=32, window=150, eh_eps=0.2,
+                        ingest_chunk=50, query_block=16, hash_family="srp"),
+        "kde_pstable": dict(dim=8, L=6, W=32, window=150, eh_eps=0.2,
+                            ingest_chunk=50, query_block=16,
+                            hash_family="pstable", w=2.0),
+        "race": dict(dim=8, L=6, W=32, ingest_chunk=64, query_block=16,
+                     hash_family="srp")}
+_SVC_KERNELS = {"retrieval": ("sann_table_scatter", "batch_score_topk"),
+                "kde_srp": ("srp_hash", "swakde_segment_pass"),
+                "kde_pstable": ("swakde_segment_pass",),
+                "race": ("srp_hash", "race_hist")}
+
+
+def _grid_rows(n, seed):
+    """Rows on a 1/16 grid: every hash product with 1/8-grid parameters is
+    exact in fp32, so the card's codes equal the CPU's."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (np.round(rng.normal(size=(n, 8)) * 16) / 16).astype(np.float32)
+
+
+def _service(kind, device, **extra):
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core import sann
+    from repro_torch.serve import kde_service, race_service, retrieval
+    kw = {**_SVC[kind], **extra}
+    rng = np.random.default_rng(len(kind))
+    if kind == "retrieval":
+        cfg = retrieval.RetrievalConfig(**kw)
+        base = sann.SANNConfig(dim=8, n_max=cfg.n_max, eta=cfg.eta, r=cfg.r,
+                               c=cfg.c, w=cfg.w, L=cfg.L, k=cfg.k,
+                               bucket_cap=cfg.bucket_cap).resolved()
+        L, k, nb, w, family = base.L, base.k, base.n_buckets, base.w, "pstable"
+    elif kind == "race":
+        cfg = race_service.RACEServiceConfig(**kw)
+        L, k, nb, w, family = cfg.L, cfg.k, cfg.W, cfg.w, cfg.hash_family
+    else:
+        cfg = kde_service.KDEServiceConfig(**kw)
+        L, k, nb, w, family = cfg.L, cfg.k, cfg.W, cfg.w, cfg.hash_family
+    p = {"proj": np.round(rng.normal(size=(8, L * k)) * 8) / 8,
+         "mix": (rng.integers(1, 2**31 - 1, size=(L, k)) * 2 + 1).astype(np.uint32),
+         "L": L, "k": k, "n_buckets": nb}
+    p["proj"] = p["proj"].astype(np.float32)
+    if family == "pstable":
+        p.update(bias=(np.floor(rng.uniform(0, w, L * k) * 8) / 8).astype(
+            np.float32), w=w)
+    params = convert.params_from_numpy(p, device)
+    cls = {"retrieval": retrieval.RetrievalService,
+           "race": race_service.RACEService}.get(kind, kde_service.KDEService)
+    return cls(cfg, device=device, params=params)
+
+
+def _drive_service(kind, svc, data):
+    svc.ingest(data[:200])
+    if kind == "retrieval":
+        svc.delete(data[10])
+    elif kind == "race":
+        svc.delete(data[:3])
+    else:
+        svc.advance_clock(svc.steps + 30)
+    svc.ingest(data[200:])
+
+
+def _assert_same_answers(got, want):
+    import numpy as np
+    for name, g, w in zip(getattr(want, "_fields", range(9)),
+                          got if isinstance(got, tuple) else (got,),
+                          want if isinstance(want, tuple) else (want,)):
+        if g.dtype == np.float32 and name in ("distance", 1):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", list(_SVC))
+def test_service_round_trip_on_the_card(dev, kind):
+    """Each service on the card through its kernels (launch counts), with
+    the same stream as on the CPU: bit-identical state, equal answers
+    (S-ANN distances within batch_score_topk's tolerance), and coalesced
+    B = 1 answers bit-identical to direct ones on the card."""
+    import threading
+    data = _grid_rows(400, 1)
+    qs = _grid_rows(24, 2) + 1 / 32
+    cpu = _service(kind, "cpu")
+    _drive_service(kind, cpu, data)
+    card = _service(kind, dev)
+    ops.reset_launches()
+    _drive_service(kind, card, data)
+    for name in _SVC_KERNELS[kind]:
+        if name != "batch_score_topk":
+            assert ops.LAUNCHES[name] > 0, name
+    for f in card.state._fields:
+        assert torch.equal(getattr(card.state, f).cpu(), getattr(cpu.state, f)), f
+    kinds = {"retrieval": ("cr", "topk"), "race": ("kde", "density")}.get(
+        kind, ("kde", "density"))
+    direct = {}
+    for kd in kinds:
+        ops.reset_launches()
+        direct[kd] = card._serve_query(kd, qs)
+        if kind == "retrieval":
+            assert ops.LAUNCHES["batch_score_topk"] == 2  # two 16-row blocks
+        _assert_same_answers(direct[kd], cpu._serve_query(kd, qs))
+    card._batch_queries, card._max_wait_us = True, 0.0
+    got = {}
+
+    def client(c):
+        for j in range(c, 24, 8):
+            kd = kinds[j % 2]
+            got[(j, kd)] = card._serve_query(kd, qs[j:j + 1])
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert len(got) == 24
+    for (j, kd), res in got.items():
+        want = direct[kd]
+        for g, w in zip(res if isinstance(res, tuple) else (res,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert (g == w[j:j + 1]).all()
+    card.close()
+    cpu.close()
+
+
+@pytest.mark.parametrize("kind", list(_SVC))
+def test_service_recovery_on_the_card(dev, tmp_path, kind):
+    """A durable service on the card crashes in the stream's tail (an
+    injected fault at ``engine.commit``); a fresh one on the card recovers
+    from the snapshot + WAL tail to the uninterrupted CPU state, and so
+    does one on the CPU from the card's directory."""
+    from repro_torch.persist import faults
+    data = _grid_rows(400, 3)
+    cpu = _service(kind, "cpu")
+    _drive_service(kind, cpu, data)
+    dur = dict(snapshot_dir=str(tmp_path), snapshot_every=2)
+    crash = _service(kind, dev, **dur)
+    plan = faults.FaultPlan([faults.FaultSpec("engine.commit", "crash", hit=7)])
+    with faults.installed(plan):
+        crash.ingest(data[:200])
+        if kind == "retrieval":
+            crash.delete(data[10])
+        elif kind == "race":
+            crash.delete(data[:3])
+        else:
+            crash.advance_clock(crash.steps + 30)
+        crash.ingest_async(data[200:])
+        with pytest.raises(RuntimeError, match="injected crash"):
+            crash.flush()
+    crash.close()
+    for device in (dev, "cpu"):
+        rec = _service(kind, device, **dur)
+        assert rec.recover() > 0
+        for f in rec.state._fields:
+            assert torch.equal(getattr(rec.state, f).cpu(),
+                               getattr(cpu.state, f)), f
+        rec.close()
+    cpu.close()

@@ -322,16 +322,24 @@ def test_swakde_segment_commit_past_32_slots_matches_reference_commit(eps,
 def test_swakde_cell_bytes_and_the_shared_memory_limit():
     """The wrapper's size rule for one warp's cell (`csrc`'s
     warp_cell_ints): 34 ints a level up to 32 slots, S_pad + 2 a level plus
-    three S_pad buffers past it; at window 65 536 the limit falls between
-    eps 0.0002 and 1e-4."""
+    three S_pad buffers past it; at window 65 536 the shared-memory limit
+    falls between eps 0.0002 and 1e-4, and the form the wrapper chooses
+    follows: registers up to 32 slots, the cell in shared memory while it
+    fits, in a global scratch slice past it (never refused)."""
     from repro_torch.core import eh as teh
     from repro_torch.kernels import ingest_commit
     assert ingest_commit.swakde_cell_bytes(18, 7) == 4 * 18 * 34
     assert ingest_commit.swakde_cell_bytes(18, 52) == 4 * (18 * 66 + 3 * 64)
+    assert ingest_commit.swakde_cell_bytes(18, 5002) == 422_160
+    ehs = [teh.EHConfig.create(65_536, x)
+           for x in (0.1, 0.01, 0.002, 2e-4, 1e-4)]
     fits = [ingest_commit.swakde_cell_bytes(e.levels, e.slots)
-            <= ingest_commit.SMEM_LIMIT for e in
-            (teh.EHConfig.create(65_536, x) for x in (0.1, 0.01, 0.002, 2e-4, 1e-4))]
+            <= ingest_commit.SMEM_LIMIT for e in ehs]
     assert fits == [True, True, True, True, False]
+    forms = [ingest_commit.swakde_cell_form(e.levels, e.slots) for e in ehs]
+    assert forms == ["registers", "shared", "shared", "shared", "global"]
+    assert ingest_commit.swakde_cell_form(18, 32) == "registers"
+    assert ingest_commit.swakde_cell_form(18, 33) == "shared"
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():

@@ -54,11 +54,12 @@ def np_(x) -> np.ndarray:
 
 
 def assert_state_equal(port_state, ref_state, names=None):
-    """Every (or each named) leaf bit-identical, dtype included."""
+    """Every (or each named) leaf bit-identical, dtype and shape included."""
     names = names or port_state._fields
     for name in names:
         a, b = np_(getattr(port_state, name)), np_(getattr(ref_state, name))
         assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
         np.testing.assert_array_equal(a, b, err_msg=name)
 
 
