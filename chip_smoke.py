@@ -48,7 +48,26 @@ user calls, at full width:
   building the grid once, and 16 closed-loop B = 1 clients through the
   coalescing scheduler, every answer bit-identical.  Each of ``srp_hash``,
   ``race_hist``, ``batch_score_topk``, ``swakde_segment_pass`` and
-  ``sann_table_scatter`` must launch there.
+  ``sann_table_scatter`` must launch there;
+* **multi-tenant fleets** (``TenantFleet``), fed mixed chunks of 4096 rows
+  whose tenants are Zipf (s = 1.1), one chunk all one tenant's: RACE (SRP,
+  news width, 1 048 576 points) in 256 hot slots over 1024 tenants,
+  spilling and reactivating, also durable and recovered; SW-AKDE
+  (p-stable, eps 0.1, window 8192 a tenant, 1 048 576 points) over 256
+  tenants; S-ANN (SIFT shape, n_max 65 536 a tenant, 65 536 points) in 64
+  hot slots over 72 tenants, then a 2048-query block of top-50 and (c, r)
+  queries.  Every tenant's row must equal its sub-stream through the
+  single-sketch core loop on the card with the fleet's codes and keys, and
+  every answer its own sketch's; each kind at T = 8 (re-run on the CPU)
+  and T = 256 launches each commit kernel once an operation;
+* **the in-process merge cluster** at K = 1, 2 and 4 workers on the card:
+  ``ClusterRetrievalService`` (SIFT1M shape; the merge against
+  ``sann_merge`` of the workers and the canonical interleaving rule
+  replayed on the CPU), ``ClusterKDEService`` (news shape, eps 0.01,
+  worker windows 65 536 / K, nothing expiring: answers equal one service's)
+  and ``ClusterRACEService`` (equal to one service over the stream), a
+  durable cluster recovered, and a worker killed at a ``faults`` site and
+  salvaged.
 
 Keep decisions come from a threefry key on each device.  Kernel launch
 counts are zeroed just before each path and read just after; the SW-AKDE
@@ -77,6 +96,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import shutil
@@ -123,6 +143,23 @@ SERVICE_CALL_ROWS, SERVICE_SNAPSHOT_EVERY = 65_536, 64
 SERVICE_CLIENTS, SERVICE_DELETE_ROWS, SERVICE_CLOCK_STEPS = 16, 5, 4096
 SERVICE_KERNELS = ("srp_hash", "race_hist", "batch_score_topk",
                    "swakde_segment_pass", "sann_table_scatter")
+
+# the fleet phase: tenants Zipf (s = 1.1) in mixed chunks of CHUNK rows, one
+# chunk all one tenant's; RACE 256 hot slots over 1024 tenants, SW-AKDE 256
+# tenants in 256 slots (window 8192 a tenant), S-ANN 64 hot slots over 72
+# tenants (n_max 65 536 a tenant: 58 MB of tables each); each kind also at
+# T = 8 (8 chunks, re-run on the CPU) and T = 256 (2 chunks)
+FLEET_ZIPF_S, FLEET_TENANTS, FLEET_HOT, FLEET_HOT_CHUNK = 1.1, 1024, 256, 10
+FLEET_RACE_N = FLEET_SW_N = KDE_N
+FLEET_SW_TENANTS, FLEET_SW_WINDOW = 256, 8192
+FLEET_SANN_TENANTS, FLEET_SANN_HOT = 72, 64
+FLEET_SANN_NMAX = FLEET_SANN_N = 65_536
+FLEET_GATE_T, FLEET_GATE_CHUNKS = (8, 256), {8: 8, 256: 2}
+FLEET_DURABLE_CHUNKS, FLEET_SNAPSHOT_EVERY, FLEET_QUERIES = 4, 4, 2048
+# the cluster phase: K workers on the one card; the KDE stream stays under
+# every worker's window (65 536 / K) so nothing expires
+CLUSTER_WORKERS = (1, 2, 4)
+CLUSTER_KDE_WINDOW, CLUSTER_KDE_N, CLUSTER_DURABLE_N = 65_536, 61_440, 262_144
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -1865,7 +1902,18 @@ def check_sketch_decode_attn(serve_run, device):
 # --------------------------------------------------------------------------
 
 def _dir_bytes(path) -> int:
-    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+    """Bytes of the files under ``path``.  The commit thread compacts the
+    WAL meanwhile, so a file (or directory) gone before it is read counts
+    as absent."""
+    import os
+    total = 0
+    for root, _, files in os.walk(path):      # os.walk skips vanished dirs
+        for f in files:
+            try:
+                total += os.stat(os.path.join(root, f)).st_size
+            except FileNotFoundError:
+                pass
+    return total
 
 
 def _feed(svc, host, device, wal_dir=None):
@@ -2171,6 +2219,900 @@ def phase_services(seed, sann_run, kde_run, device):
 
 
 # --------------------------------------------------------------------------
+# phase 4b: multi-tenant fleets (TenantFleet) at full width
+# --------------------------------------------------------------------------
+
+def zipf_tids(n, tenants, seed, hot_chunk=None):
+    """Tenant ids of a mixed stream: Zipf (s = FLEET_ZIPF_S) over
+    ``tenants``, and chunk ``hot_chunk`` (if the stream reaches it) all one
+    mid-ranked tenant's (``tenants // 6``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, tenants + 1, dtype=np.float64) ** -FLEET_ZIPF_S
+    tids = rng.choice(tenants, size=n, p=p / p.sum()).astype(np.int64)
+    if hot_chunk is not None and n >= (hot_chunk + 1) * CHUNK:
+        tids[hot_chunk * CHUNK:(hot_chunk + 1) * CHUNK] = tenants // 6
+    return tids
+
+
+def _add_launches(acc):
+    """Add the launch counts since the last `ops.reset_launches` to ``acc``."""
+    from repro_torch.kernels import ops
+    for k in acc:
+        acc[k] += ops.LAUNCHES[k]
+
+
+@contextlib.contextmanager
+def capturing(at, clone=False):
+    """Inside the block, call number ``at[name]`` (from 0) of each
+    `kernels.ops` entry named in ``at`` leaves its arguments in the dict
+    yielded; every call still runs the entry itself.  The entries are
+    functional and a fleet ingest replaces its state every operation, so
+    an ingest's kept tensors stay as the call saw them; a query's later
+    blocks write activated rows into the state it read, so a query's are
+    kept as copies (``clone``)."""
+    import torch
+    from repro_torch.kernels import ops
+    saved = {name: getattr(ops, name) for name in at}
+    calls = dict.fromkeys(at, 0)
+    kept = {}
+
+    def wrap(name, fn):
+        def entry(*args, **kw):
+            if calls[name] == at[name]:
+                kept[name] = (tuple(a.clone() if clone and isinstance(
+                    a, torch.Tensor) else a for a in args), kw)
+            calls[name] += 1
+            return fn(*args, **kw)
+        return entry
+
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield kept
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _pick_op(op_rows, tids):
+    """The operation to capture: the most tenants, then the most rows, then
+    the latest."""
+    import numpy as np
+    return max(range(len(op_rows)), key=lambda i: (
+        np.unique(tids[op_rows[i][0]:op_rows[i][1]]).size,
+        op_rows[i][1] - op_rows[i][0], i))
+
+
+def _check_captured(where, kept, device):
+    """Each captured call of a fleet (its own shapes: tenant-offset bins,
+    ``T*L`` rows, ``(T,)`` pointers, the ``(T*capacity, d)`` store) run
+    again through the kernel and through its plain version on the card:
+    integer outputs bit for bit, SRP codes under the flip rule, top-k
+    distances within (RTOL, ATOL) and ids equal but at near-ties.  Every
+    captured call must be there; returns a row each."""
+    import torch
+    from repro_torch.kernels import (batch_score, ingest_commit, race_update,
+                                     ref, srp_hash)
+    runs = {
+        "srp_hash": (srp_hash.srp_hash, ref.srp_hash_ref),
+        "race_hist": (race_update.race_hist, ref.race_hist_ref),
+        "swakde_segment_commit": (ingest_commit.swakde_segment_commit,
+                                  ref.swakde_segment_commit_ref),
+        "sann_table_commit": (ingest_commit.sann_table_commit,
+                              ref.sann_table_commit_ref),
+        "batch_score_topk_gather": (batch_score.batch_score_topk_gather,
+                                    ref.batch_score_topk_gather_ref)}
+    rows = []
+    for name, (args, kw) in kept.items():
+        kernel, plain = runs[name]
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        row = {"entry": name, "fleet": where,
+               "shapes": [list(a.shape) for a in args
+                          if isinstance(a, torch.Tensor)]}
+        if name == "srp_hash":
+            x, proj, mix = args[:3]
+            flips, unexplained = ref.srp_code_flips(x, proj, mix, got[0],
+                                                    want[0], SRP_FLIP_TOL)
+            if unexplained:
+                fail(f"fleet {where}: srp_hash differs from its plain version "
+                     f"away from a sign boundary ({unexplained} codes)")
+            row.update(flips_at_sign_boundaries=flips, max_abs_err=int(
+                (got[0].long() - want[0].long()).abs().max()))
+        elif name == "batch_score_topk_gather":
+            qs, points, cand, ok = args[:4]
+            full = torch.where(ok, ref.batch_score_ref(
+                qs, points[cand.clamp(min=0).long()]), float("inf"))
+            err, mism = topk_err(got[0], got[1], want[0], want[1], full)
+            row.update(max_abs_err=err, id_near_ties=mism)
+        else:
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    fail(f"fleet {where}: {name} differs from its plain "
+                         f"version on the fleet's inputs")
+            row.update(max_abs_err=0)
+        rows.append(row)
+    sync(device)
+    return rows
+
+
+def _fleet_feed(fl, host, tids, device):
+    """Mixed chunks of CHUNK rows into ``fl``; returns the seconds."""
+    t0 = time.perf_counter()
+    for i in range(0, host.shape[0], CHUNK):
+        fl.ingest(host[i:i + CHUNK], tids[i:i + CHUNK])
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def _fleet_ops(tids, hot):
+    """The fleet's operations: ``(start, stop)`` row ranges of the blocks
+    `tenant_fleet.plan_ops` cuts each chunk into (contiguous, in order)."""
+    from repro_torch.serve import tenant_fleet
+    out = []
+    for i in range(0, len(tids), CHUNK):
+        for idx in tenant_fleet.plan_ops(tids[i:i + CHUNK], hot):
+            out.append((i + int(idx[0]), i + int(idx[-1]) + 1))
+    return out
+
+
+def _fleet_codes(params, data, ops):
+    """Every row's codes as the fleet computed them: each operation's block
+    hashed as one call, the fleet's shape."""
+    import torch
+    from repro_torch.core import lsh
+    return torch.cat([lsh.hash_points(params, data[a:b]) for a, b in ops])
+
+
+def _by_tenant(tids, tenants, device):
+    """Rows of each tenant in stream order: ``(order, starts, counts)``."""
+    import numpy as np
+    import torch
+    order = np.argsort(tids, kind="stable")
+    counts = np.bincount(tids, minlength=tenants)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return torch.from_numpy(order).to(device), starts, counts
+
+
+def _state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for x in state)
+
+
+def _fleet_oracle(kind, fl, data, codes, tids, op_rows, device):
+    """Tenant t -> its sketch fed its own sub-stream through the
+    single-sketch core loop on the card, with the fleet's codes (and, for
+    S-ANN, each operation's keep draws under that operation's key for t),
+    built when asked for, so the oracles of a fleet never all sit on the
+    card at once."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng, race, sann, swakde
+    from repro_torch.kernels import ops
+    cfg = fl.sketch_cfg
+    if kind == "sann":
+        per_t = {}
+        for seq, (a, b) in enumerate(op_rows):
+            tt = tids[a:b]
+            for t in np.unique(tt):
+                per_t.setdefault(int(t), []).append(
+                    (seq, a + np.nonzero(tt == t)[0]))
+
+        def oracle(t):
+            st = sann.sann_empty_state(cfg, device)
+            for seq, idx in per_t.get(t, []):
+                rows = torch.from_numpy(idx).to(device)
+                keep = prng.bernoulli(sann.sann_row_keys(prng.fold_in(
+                    prng.fold_in(fl.base_key, seq), t), rows.shape[0]),
+                    cfg.keep_prob)
+                st = sann.sann_commit_chunk(st, sann.sann_prepare_given_keep(
+                    fl.params, data[rows], keep, cfg, codes=codes[rows]), cfg)
+            return st
+        return oracle
+
+    order, starts, counts = _by_tenant(tids, int(tids.max()) + 1, device)
+
+    def chunks(t):
+        if t >= len(counts):
+            return []
+        rows = order[starts[t]:starts[t] + counts[t]]
+        return [codes[rows[j:j + CHUNK]] for j in range(0, rows.shape[0], CHUNK)]
+
+    if kind == "race":
+        L, W = fl.empty_state.counts.shape
+
+        def oracle(t):
+            st = race.race_init(L, W, device)
+            for c in chunks(t):
+                st = race.race_commit_chunk(st, race.RACEPrep(
+                    hist=ops.race_hist(c, W), count=c.shape[0]))
+            return st
+        return oracle
+
+    def oracle(t):
+        st = swakde.swakde_init(cfg, device)
+        for c in chunks(t):
+            st = swakde.swakde_commit_chunk(
+                st, swakde.swakde_prepare_from_codes(c, cfg), cfg)
+        return st
+    return oracle
+
+
+def _oracle_check(name, fl, tenants, oracle_of):
+    """Every tenant's row (hot, spilled or never seen) equals its oracle."""
+    bad = []
+    for t in range(tenants):
+        diff = differing_leaves(fl.peek_state(t), oracle_of(t))
+        if diff:
+            bad.append((t, diff))
+    if bad:
+        fail(f"fleet {name}: tenant rows differ from the single-sketch loop "
+             f"for {len(bad)} tenants, e.g. {bad[:4]}")
+
+
+def _fleet_query_check(name, fl, qs_dev, qt, oracle, query, direct, device,
+                       exact, launches):
+    """Fleet answers for ``qs`` against each tenant's own sketch, block by
+    block as the fleet cuts them; ``exact`` lists the fields compared bit for
+    bit, the others within (RTOL, ATOL).  Returns queries/s; the fleet's
+    launches are added to ``launches``."""
+    import numpy as np
+    from repro_torch.serve import engine, tenant_fleet
+    from repro_torch.kernels import ops
+    qs = qs_dev.cpu().numpy()
+    sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = direct(qs, qt)
+    sync(device)
+    rate = qs.shape[0] / (time.perf_counter() - t0)
+    _add_launches(launches)
+    got = got if isinstance(got, tuple) else (got,)
+    for idx in tenant_fleet.plan_ops(qt, fl.cfg.hot_slots):
+        a, b = int(idx[0]), int(idx[-1]) + 1
+        for t in np.unique(qt[a:b]):
+            m = qt[a:b] == t
+            want = engine.to_host(query(oracle[int(t)], qs_dev[a:b]))
+            want = want if isinstance(want, tuple) else (want,)
+            for j, (g, w) in enumerate(zip(got, want)):
+                g, w = g[a:b][m], w[m]
+                ok = (np.array_equal(g, w) if j in exact else
+                      np.allclose(g, w, rtol=RTOL, atol=ATOL, equal_nan=True))
+                if not ok:
+                    fail(f"fleet {name}: answers of tenant {t} differ from "
+                         f"its own sketch's (field {j})")
+    return rate
+
+
+def _fleet_cpu_replay(kind, fl, host, tids, codes, ops, device):
+    """The fleet's operations re-run on the CPU through the core fleet
+    functions (the plain versions of every kernel) with the card's codes;
+    the tenants all fit (no eviction), so tenant t sits in the slot of its
+    first appearance.  The stacked state must equal the card's."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import fleet, prng
+    from repro_torch.serve.tenant_fleet import _next_pow2
+    T = fl.cfg.hot_slots
+    params = convert.params_from_numpy(convert.to_numpy(fl.params), "cpu")
+    empty = type(fl.empty_state)(*(x.cpu() for x in fl.empty_state))
+    st = fleet.fleet_broadcast(empty, T)
+    base = fl.base_key.cpu()
+    slot_of, exts = {}, np.zeros(T, np.int64)
+    for seq, (a, b) in enumerate(ops):
+        tt = tids[a:b]
+        for t in dict.fromkeys(tt.tolist()):
+            if t not in slot_of:
+                slot_of[t] = len(slot_of)
+                exts[slot_of[t]] = t
+        sl = torch.tensor([slot_of[t] for t in tt.tolist()], dtype=torch.int32)
+        x = torch.from_numpy(host[a:b])
+        c = codes[a:b].cpu()
+        cap = _next_pow2(int(np.bincount(sl.numpy()).max()))
+        if kind == "race":
+            st = fleet.race_fleet_ingest(st, params, x, sl, codes=c)
+        elif kind == "swakde":
+            st = fleet.swakde_fleet_ingest(st, params, x, sl, fl.sketch_cfg, cap,
+                                           codes=c)
+        else:
+            keys = fleet.sann_fleet_keys(prng.fold_in(base, seq),
+                                         torch.from_numpy(exts))
+            st = fleet.sann_fleet_ingest(st, params, x, sl, keys,
+                                         fl.sketch_cfg, cap, codes=c)
+    bad = differing_leaves(fl.stacked, st)
+    if bad:
+        fail(f"fleet {kind} T={T}: card and CPU stacked states differ in {bad}")
+    return len(ops)
+
+
+def _fleet_gate(kind, T, make, host, data, seed, device):
+    """A fleet of T hot slots fed FLEET_GATE_CHUNKS[T] chunks of a stream
+    Zipf over T tenants (all fit): one launch of the kind's commit kernel
+    (and, for the SRP RACE fleet, of ``srp_hash`` and ``race_hist``) an
+    operation; every tenant's row equal to its single-sketch core loop on
+    the card; at T = 8 the whole stream also re-run on the CPU."""
+    from repro_torch.kernels import ops
+    n = FLEET_GATE_CHUNKS[T] * CHUNK
+    tids = zipf_tids(n, T, seed + T)
+    fl = make(T)
+    launches = {k: 0 for k in ops.LAUNCHES}
+    ops.reset_launches()
+    secs = _fleet_feed(fl, host[:n], tids, device)
+    _add_launches(launches)
+    per_op = {"race": ("srp_hash", "race_hist"),
+              "swakde": ("swakde_segment_pass",),
+              "sann": ("sann_table_scatter",)}[kind]
+    bad = {k: launches[k] for k in per_op if launches[k] != fl.seq}
+    if bad or fl.splits:
+        fail(f"fleet {kind} T={T}: {fl.seq} operations launched {bad} "
+             f"(splits {fl.splits}); expected one launch each an operation")
+    op_rows = _fleet_ops(tids, T)
+    codes = _fleet_codes(fl.params, data, op_rows)
+    _oracle_check(f"{kind} T={T}", fl, T, _fleet_oracle(
+        kind, fl, data, codes, tids, op_rows, device))
+    line = {"T": T, "points": n, "operations": fl.seq,
+            "points_per_s": n / secs, "launches": {k: launches[k] for k in per_op},
+            "launches_per_operation": 1,
+            "tenant_rows_bit_identical": T,
+            "device_bytes": _state_bytes(fl.stacked)}
+    if T == FLEET_GATE_T[0]:
+        line["cpu_cross_check_chunks"] = FLEET_GATE_CHUNKS[T]
+        line["cpu_operations"] = _fleet_cpu_replay(kind, fl, host, tids,
+                                                   codes, op_rows, device)
+        line["cpu_bit_identical"] = True
+    fl.close()
+    return line, launches
+
+
+def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
+                n_sw=FLEET_SW_N, n_sann=FLEET_SANN_N,
+                n_queries=FLEET_QUERIES):
+    """Multi-tenant fleets through `serve.tenant_fleet.TenantFleet` at full
+    width, fed mixed chunks of 4096 rows whose tenants are Zipf (s = 1.1),
+    with one chunk all one tenant's:
+
+    * RACE (SRP, news width): 256 hot slots over 1024 tenants, spilling and
+      reactivating; every tenant's row against its sub-stream through the
+      single-sketch core loop on the card with the fleet's codes; a durable
+      fleet recovered by a fresh one;
+    * SW-AKDE (p-stable, eps 0.1, window 8192 a tenant): 256 tenants in 256
+      slots, hot tenants expiring and cold ones not;
+    * S-ANN (SIFT shape, n_max 65 536 a tenant): 64 hot slots over 72
+      tenants, every operation's per-tenant keys replayed; top-50 and (c, r)
+      queries in a 2048-query block against each tenant's own sketch;
+    * the kernels of one operation of each fleet (and of one query block of
+      each S-ANN path) run again on the inputs the fleet gave them, against
+      their plain versions on the card;
+    * each kind at T = 8 (cross-checked on the CPU) and T = 256: one launch
+      of the commit kernel an operation whatever T is, every tenant's row
+      its single-sketch loop's;
+    * a profile window of 4 fleet chunks each."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import race, sann, swakde
+    from repro_torch.kernels import ops
+    from repro_torch.serve import tenant_fleet
+
+    out = {"phase": "fleet", "zipf_s": FLEET_ZIPF_S, "chunk": CHUNK}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    checks = []
+
+    def feed(fl, host, tids, at):
+        """The counted feed, capturing the calls ``at`` names."""
+        with capturing(at) as kept:
+            ops.reset_launches()
+            secs = _fleet_feed(fl, host, tids, device)
+            _add_launches(launches)
+        return secs, kept
+
+    kdata = kde_run["data"]
+    khost = kdata[:max(n_race, n_sw)].cpu().numpy()
+    L = W = 96
+
+    # --- RACE: 256 hot slots over 1024 tenants ----------------------------
+    rcfg = tenant_fleet.TenantFleetConfig(kind="race", dim=KDE_DIM,
+                                          hot_slots=FLEET_HOT, seed=seed,
+                                          L=L, W=W, k=2)
+
+    def make_race(T=FLEET_HOT, **kw):
+        return tenant_fleet.TenantFleet(
+            dataclasses.replace(rcfg, hot_slots=T, **kw), device=device)
+
+    tids = zipf_tids(n_race, FLEET_TENANTS, seed, FLEET_HOT_CHUNK)
+    op_rows = _fleet_ops(tids, FLEET_HOT)
+    pick = _pick_op(op_rows, tids)
+    fl = make_race()
+    secs, kept = feed(fl, khost[:n_race], tids,
+                      {"srp_hash": pick, "race_hist": pick})
+    if len(op_rows) != fl.seq or fl.spills == 0:
+        fail(f"fleet race: {fl.seq} operations, {len(op_rows)} planned, "
+             f"{fl.spills} spills")
+    checks += [dict(r, operation=pick, T=FLEET_HOT)
+               for r in _check_captured("race", kept, device)]
+    del kept
+    codes = _fleet_codes(fl.params, kdata, op_rows)
+    of = _fleet_oracle("race", fl, kdata, codes, tids, op_rows, device)
+    oracle = {t: of(t) for t in range(FLEET_TENANTS)}
+    _oracle_check("race", fl, FLEET_TENANTS, oracle.__getitem__)
+    qsrc = torch.randint(0, n_race, (n_queries,), generator=torch.Generator(
+        device="cpu").manual_seed(seed + 7)).numpy()
+    qt = tids[qsrc]
+    qs_dev = kdata[torch.from_numpy(qsrc).to(device)]
+    q_rate = _fleet_query_check(
+        "race", fl, qs_dev, qt, oracle,
+        lambda st, q: race.race_query_batch(st, fl.params, q), fl.query,
+        device, (0,), launches)
+    out["race"] = {"tenants": FLEET_TENANTS, "hot_slots": FLEET_HOT,
+                   "points": n_race, "L": L, "W": W, "hash": "srp",
+                   "operations": fl.seq, "splits": fl.splits,
+                   "spills": fl.spills, "activations": fl.activations,
+                   "ingest_s": secs, "points_per_s": n_race / secs,
+                   "queries": n_queries, "queries_per_s": q_rate,
+                   "device_bytes": _state_bytes(fl.stacked),
+                   "tenant_rows_bit_identical": FLEET_TENANTS,
+                   "hot_chunk": FLEET_HOT_CHUNK}
+    race_fleet = fl
+    del oracle, codes
+
+    # --- RACE durable: snapshots every 4 operations, spills to disk --------
+    with tempfile.TemporaryDirectory() as tmp:
+        n_dur = FLEET_DURABLE_CHUNKS * CHUNK
+        live = make_race(snapshot_dir=tmp, snapshot_every=FLEET_SNAPSHOT_EVERY)
+        ops.reset_launches()
+        t_dur = _fleet_feed(live, khost[:n_dur], tids[:n_dur], device)
+        # one operation past the last snapshot: a WAL tail to replay
+        live.ingest(khost[n_dur:n_dur + 100], np.zeros(100, np.int64))
+        _add_launches(launches)
+        live.close()
+        rec = make_race(snapshot_dir=tmp, snapshot_every=FLEET_SNAPSHOT_EVERY)
+        t0 = time.perf_counter()
+        replayed = rec.recover()
+        t_rec = time.perf_counter() - t0
+        if rec.seq != live.seq or rec.hot_tenants != live.hot_tenants:
+            fail("fleet race durable: the recovered fleet's op seq or hot set "
+                 "differs from the live one's")
+        _oracle_check("race recovered", rec, FLEET_TENANTS, live.peek_state)
+        out["race_durable"] = {
+            "points": n_dur, "operations": live.seq, "spills": live.spills,
+            "snapshot_every": FLEET_SNAPSHOT_EVERY,
+            "points_per_s_durable": n_dur / t_dur,
+            "recovered_records": replayed, "recovery_s": t_rec,
+            "tenants_bit_identical": FLEET_TENANTS,
+            "dir_bytes": _dir_bytes(tmp)}
+        rec.close()
+        del live, rec
+
+    # --- SW-AKDE: 256 tenants in 256 slots, window 8192 a tenant -----------
+    scfg = tenant_fleet.TenantFleetConfig(
+        kind="swakde", dim=KDE_DIM, hot_slots=FLEET_HOT, seed=seed, L=L, W=W,
+        k=2, w=4.0, window=FLEET_SW_WINDOW, eh_eps=0.1)
+
+    def make_sw(T=FLEET_HOT, **kw):
+        return tenant_fleet.TenantFleet(
+            dataclasses.replace(scfg, hot_slots=T, **kw), device=device)
+
+    tids = zipf_tids(n_sw, FLEET_SW_TENANTS, seed + 1, FLEET_HOT_CHUNK)
+    op_rows = _fleet_ops(tids, FLEET_HOT)
+    pick = _pick_op(op_rows, tids)
+    fl = make_sw()
+    secs, kept = feed(fl, khost[:n_sw], tids, {"swakde_segment_commit": pick})
+    checks += [dict(r, operation=pick, T=FLEET_HOT)
+               for r in _check_captured("swakde", kept, device)]
+    del kept
+    codes = _fleet_codes(fl.params, kdata, op_rows)
+    cfg = fl.sketch_cfg
+    of = _fleet_oracle("swakde", fl, kdata, codes, tids, op_rows, device)
+    oracle = {t: of(t) for t in range(FLEET_SW_TENANTS)}
+    _oracle_check("swakde", fl, FLEET_SW_TENANTS, oracle.__getitem__)
+    counts = np.bincount(tids, minlength=FLEET_SW_TENANTS)
+    if not (counts.max() > FLEET_SW_WINDOW > counts.min()):
+        fail("fleet swakde: the stream must expire hot tenants and not cold ones")
+    qsrc = torch.randint(0, n_sw, (n_queries,), generator=torch.Generator(
+        device="cpu").manual_seed(seed + 8)).numpy()
+    qt = tids[qsrc]
+    qs_dev = kdata[torch.from_numpy(qsrc).to(device)]
+    q_rate = _fleet_query_check(
+        "swakde", fl, qs_dev, qt, oracle,
+        lambda st, q: swakde.swakde_query_batch(st, fl.params, q, cfg),
+        fl.query, device, (0,), launches)
+    out["swakde"] = {"tenants": FLEET_SW_TENANTS, "hot_slots": FLEET_HOT,
+                     "points": n_sw, "L": L, "W": W, "hash": "pstable",
+                     "window": FLEET_SW_WINDOW, "eh_eps": 0.1,
+                     "operations": fl.seq, "splits": fl.splits,
+                     "tenants_expiring": int((counts > FLEET_SW_WINDOW).sum()),
+                     "ingest_s": secs, "points_per_s": n_sw / secs,
+                     "queries": n_queries, "queries_per_s": q_rate,
+                     "device_bytes": _state_bytes(fl.stacked),
+                     "tenant_rows_bit_identical": FLEET_SW_TENANTS}
+    sw_fleet = fl
+    del oracle, codes
+
+    # --- S-ANN: 64 hot slots over 72 tenants at the SIFT shape -------------
+    sdata = sann_run["data"]
+    shost = sdata[:n_sann].cpu().numpy()
+    r, c = sann_run["r"], sann_run["c"]
+    acfg = tenant_fleet.TenantFleetConfig(
+        kind="sann", dim=SANN_DIM, hot_slots=FLEET_SANN_HOT, seed=seed,
+        n_max=FLEET_SANN_NMAX, eta=0.3, r=r, c=c, w=2.0 * r, L=12, k=6,
+        bucket_cap=32)
+
+    def make_sann(T=FLEET_SANN_HOT, **kw):
+        return tenant_fleet.TenantFleet(
+            dataclasses.replace(acfg, hot_slots=T, **kw), device=device)
+
+    tids = zipf_tids(n_sann, FLEET_SANN_TENANTS, seed + 2, FLEET_HOT_CHUNK)
+    op_rows = _fleet_ops(tids, FLEET_SANN_HOT)
+    pick = _pick_op(op_rows, tids)
+    fl = make_sann()
+    secs, kept = feed(fl, shost, tids, {"sann_table_commit": pick})
+    checks += [dict(r, operation=pick, T=FLEET_SANN_HOT)
+               for r in _check_captured("sann", kept, device)]
+    del kept
+    cfg = fl.sketch_cfg
+    codes = _fleet_codes(fl.params, sdata, op_rows)
+    of = _fleet_oracle("sann", fl, sdata, codes, tids, op_rows, device)
+    oracle = {t: of(t) for t in range(FLEET_SANN_TENANTS)}
+    _oracle_check("sann", fl, FLEET_SANN_TENANTS, oracle.__getitem__)
+    qsrc = torch.randint(0, n_sann, (n_queries,), generator=torch.Generator(
+        device="cpu").manual_seed(seed + 9)).numpy()
+    qt = tids[qsrc]
+    g = torch.Generator(device=device).manual_seed(seed + 9)
+    qs_dev = sdata[torch.from_numpy(qsrc).to(device)] + 0.01 * torch.randn(
+        (n_queries, SANN_DIM), generator=g, device=device)
+    # the scorer on the fleet's own query inputs (one untimed block each)
+    qs_np = qs_dev.cpu().numpy()
+    for path, run in (("sann (c, r)", fl.query),
+                      ("sann top-50", lambda q, t: fl.query_topk(q, t, TOPK))):
+        with capturing({"batch_score_topk_gather": 0}, clone=True) as kept:
+            run(qs_np, qt)
+        checks += [dict(r, T=FLEET_SANN_HOT, queries=n_queries)
+                   for r in _check_captured(path, kept, device)]
+        del kept
+    q_rate = _fleet_query_check(
+        "sann (c, r)", fl, qs_dev, qt, oracle,
+        lambda st, q: tuple(sann.sann_query_batch(st, fl.params, q, cfg)),
+        lambda q, t: tuple(fl.query(q, t)), device, (0, 2, 3), launches)
+    k_rate = _fleet_query_check(
+        "sann top-50", fl, qs_dev, qt, oracle,
+        lambda st, q: sann.sann_query_topk_batch(st, fl.params, q, cfg, TOPK),
+        lambda q, t: fl.query_topk(q, t, TOPK), device, (0,), launches)
+    out["sann"] = {"tenants": FLEET_SANN_TENANTS, "hot_slots": FLEET_SANN_HOT,
+                   "points": n_sann, "dim": SANN_DIM, "n_max": FLEET_SANN_NMAX,
+                   "L": cfg.L, "k": cfg.k, "bucket_cap": cfg.bucket_cap,
+                   "capacity": cfg.capacity, "operations": fl.seq,
+                   "splits": fl.splits, "spills": fl.spills,
+                   "activations": fl.activations,
+                   "ingest_s": secs, "points_per_s": n_sann / secs,
+                   "queries": n_queries, "cr_queries_per_s": q_rate,
+                   "topk_queries_per_s": k_rate,
+                   "device_bytes": _state_bytes(fl.stacked),
+                   "tenant_rows_bit_identical": FLEET_SANN_TENANTS}
+    out["kernel_checks"] = checks
+    del oracle, codes
+
+    # --- profile windows of 4 fleet chunks ---------------------------------
+    profile = {}
+    n4 = 4 * CHUNK
+    for name, f, host, tt in (
+            ("race", race_fleet, khost, zipf_tids(n4, FLEET_TENANTS, seed + 11)),
+            ("swakde", sw_fleet, khost, zipf_tids(n4, FLEET_SW_TENANTS, seed + 12)),
+            ("sann", fl, shost, zipf_tids(n4, FLEET_SANN_TENANTS, seed + 13))):
+        ops.reset_launches()
+        row = profile_window(f"{name}_fleet_ingest_4_chunks",
+                             lambda f=f, h=host, t=tt: _fleet_feed(
+                                 f, h[:n4], t, device), device)
+        _add_launches(launches)
+        profile[name] = {k: row[k] for k in ("wall_ms", "device_busy_ms",
+                                             "device_busy_share", "device_ops",
+                                             "host_waits")}
+    out["profile_4_chunks"] = profile
+    for f in (race_fleet, sw_fleet, fl):
+        f.close()
+    del race_fleet, sw_fleet, fl
+
+    # --- one launch an operation at T = 8 and T = 256 ---------------------
+    gates = {}
+    for kind, make, host, data in (("race", make_race, khost, kdata),
+                                   ("swakde", make_sw, khost, kdata),
+                                   ("sann", make_sann, shost, sdata)):
+        gates[kind] = []
+        for T in FLEET_GATE_T:
+            line, got = _fleet_gate(kind, T, make, host, data, seed, device)
+            for k in launches:
+                launches[k] += got[k]
+            gates[kind].append(line)
+            torch.cuda.empty_cache()
+    out["per_T"] = gates
+    emit({**out, "launches": launches})
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 4c: the in-process merge cluster on the card
+# --------------------------------------------------------------------------
+
+def _cluster_feed(cl, host, device):
+    """``host`` rows through ``ingest_async`` calls of SERVICE_CALL_ROWS
+    rows, then ``flush``; returns the seconds."""
+    t0 = time.perf_counter()
+    for i in range(0, host.shape[0], SERVICE_CALL_ROWS):
+        cl.ingest_async(host[i:i + SERVICE_CALL_ROWS])
+    cl.flush()
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def _timed_merge(cl, device):
+    """The coordinator's merge of the workers' current states, timed (ms),
+    and the merged state it serves."""
+    states = [w.snapshot()[0] for w in cl.workers]
+    sync(device)
+    t0 = time.perf_counter()
+    merged = cl._merge_fn(states) if len(states) > 1 else states[0]
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3, merged
+
+
+def _timed_queries(fn, qs, device, reps=3):
+    """Queries/s of ``fn(qs)`` (a 2048-query block), best of ``reps``."""
+    best = 0.0
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn(qs)
+        sync(device)
+        best = max(best, qs.shape[0] / (time.perf_counter() - t0))
+    return best
+
+
+def _cpu_sann_merge(a, b, params_dev, params_cpu, cfg, device):
+    """The canonical interleaving rule, on the CPU: the stored points of
+    ``a`` then ``b`` ordered by (invalid last, arrival stamp), ties a before
+    b (numpy's stable lexsort), replayed from an empty sketch through the
+    plain versions with the card's codes, stamps restored."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lsh, sann
+    from repro_torch.core.util import saturating_add, set_drop
+    pts = torch.cat([a.points.cpu(), b.points.cpu()])
+    valid = torch.cat([a.valid.cpu(), b.valid.cpu()])
+    stamps = torch.cat([a.stamps.cpu(), b.stamps.cpu()])
+    order = torch.from_numpy(np.lexsort((stamps.numpy(), ~valid.numpy())))
+    xs, keep, st_sorted = pts[order], valid[order], stamps[order]
+    codes = lsh.hash_points(params_dev, xs.to(device)).cpu()
+    prep = sann.sann_prepare_given_keep(params_cpu, xs, keep, cfg, codes=codes)
+    merged = sann.sann_commit_chunk(sann.sann_empty_state(cfg, "cpu"), prep, cfg)
+    slot = prep.kept_rank % cfg.capacity
+    win = torch.where(prep.winner, slot, cfg.capacity)
+    return merged._replace(stamps=set_drop(merged.stamps, win, st_sorted),
+                           n_seen=saturating_add(a.n_seen.cpu(), b.n_seen.cpu()))
+
+
+def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
+                  n_race=KDE_N, n_kde=CLUSTER_KDE_N,
+                  n_durable=CLUSTER_DURABLE_N, workers=CLUSTER_WORKERS):
+    """In-process merge clusters on the one card, at K = 1, 2 and 4 workers,
+    fed from host numpy through ``ingest_async`` and ``flush``:
+
+    * `ClusterRetrievalService` at the SIFT1M shape of the ``sann`` phase:
+      the merged state equals the port's `sann_merge` of the workers' states
+      on the card and the canonical interleaving rule replayed on the CPU;
+    * `ClusterKDEService` at the news shape (SRP), eps 0.01, worker windows
+      65 536 / K, a stream short enough that nothing expires: answers equal
+      one `KDEService` (window 65 536) over the stream, bit for bit; then
+      the rest of the news stream through the same cluster, timed for the
+      ingest rate;
+    * `ClusterRACEService` at the news shape (SRP): the merged counters
+      equal one `RACEService` over the stream, bit for bit;
+    * a durable RACE cluster (K = 2) recovered by a fresh one, and a K = 4
+      RACE cluster whose worker 1 dies at a ``faults`` site (its commit,
+      then every recovery): its WAL tail re-partitioned to the survivors,
+      the merge still one service's."""
+    import dataclasses
+    import functools
+    import tempfile
+    from repro_torch import convert
+    from repro_torch.core import sann
+    from repro_torch.kernels import ops
+    from repro_torch.persist import faults
+    from repro_torch.serve import cluster, engine, kde_service, race_service
+    from repro_torch.serve import retrieval
+
+    out = {"phase": "cluster", "workers": list(workers),
+           "call_rows": SERVICE_CALL_ROWS}
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    # --- S-ANN retrieval at the SIFT1M shape ------------------------------
+    shost = sann_run["data"][:n_sann].cpu().numpy()
+    qs_dev = sann_run["queries"][:QUERY_BLOCK]
+    qs = qs_dev.cpu().numpy()
+    rcfg = retrieval.RetrievalConfig(
+        dim=SANN_DIM, n_max=SANN_N, eta=0.3, r=sann_run["r"], c=sann_run["c"],
+        w=2.0 * sann_run["r"], L=12, k=6, bucket_cap=32, seed=seed,
+        ingest_chunk=CHUNK, query_block=QUERY_BLOCK, topk=TOPK,
+        max_pending=SERVICE_CALL_ROWS)
+    rows = []
+    for K in workers:
+        cl = cluster.ClusterRetrievalService(rcfg, num_workers=K,
+                                             merge_every=8, device=device)
+        ops.reset_launches()
+        secs = _cluster_feed(cl, shost, device)
+        merge_ms, merged = _timed_merge(cl, device)
+        served = cl.merged_state()
+        got_cr = cl.query(qs)
+        cr_rate = _timed_queries(cl.query, qs, device)
+        topk_rate = _timed_queries(cl.query_topk, qs, device)
+        _add_launches(launches)
+        w0 = cl.workers[0]
+        direct = functools.reduce(
+            lambda a, b: sann.sann_merge(a, b, w0.params, w0.cfg),
+            [w.state for w in cl.workers])
+        _same_state(f"cluster retrieval K={K}", direct=direct, served=served,
+                    timed=merged)
+        if K > 1:
+            pc = convert.params_from_numpy(convert.to_numpy(w0.params), "cpu")
+            cpu = functools.reduce(
+                lambda a, b: _cpu_sann_merge(a, b, w0.params, pc, w0.cfg,
+                                             device),
+                [w.state for w in cl.workers])
+            _same_state(f"cluster retrieval K={K} (CPU rule)", card=served,
+                        cpu=cpu)
+        cr = engine.to_host(sann.sann_query_batch(served, w0.params, qs_dev,
+                                                  w0.cfg))
+        _same_answers(f"cluster retrieval K={K}", got_cr, cr)
+        rows.append({"K": K, "points": n_sann, "ingest_s": secs,
+                     "points_per_s": n_sann / secs, "merge_ms": merge_ms,
+                     "n_stored": int(served.n_stored),
+                     "cr_queries_per_s": cr_rate,
+                     "topk_queries_per_s": topk_rate,
+                     "cpu_rule_checked": K > 1,
+                     "device_bytes": sum(_state_bytes(w.state)
+                                         for w in cl.workers)})
+        cl.close()
+        del cl, merged, served, direct
+    out["retrieval"] = rows
+
+    # --- SW-AKDE at the news shape, eps 0.01, nothing expires -------------
+    kdata = kde_run["data"]
+    n_long = max(n_race, n_kde)
+    khost = kdata[:n_long].cpu().numpy()
+    kqs = kde_run["queries"][:QUERY_BLOCK].cpu().numpy()
+    kcfg = kde_service.KDEServiceConfig(
+        dim=KDE_DIM, L=96, W=96, window=CLUSTER_KDE_WINDOW, eh_eps=0.01,
+        hash_family="srp", k=2, seed=seed, ingest_chunk=CHUNK,
+        query_block=QUERY_BLOCK, max_pending=SERVICE_CALL_ROWS)
+    single = kde_service.KDEService(kcfg, device=device)
+    _cluster_feed(single, khost[:n_kde], device)
+    want = single.query(kqs)
+    rows = []
+    for K in workers:
+        cl = cluster.ClusterKDEService(
+            dataclasses.replace(kcfg, window=CLUSTER_KDE_WINDOW // K),
+            num_workers=K, merge_every=8, device=device)
+        ops.reset_launches()
+        secs = _cluster_feed(cl, khost[:n_kde], device)
+        merge_ms, _ = _timed_merge(cl, device)
+        got = cl.query(kqs)
+        q_rate = _timed_queries(cl.query, kqs, device)
+        _add_launches(launches)
+        if max(w.steps for w in cl.workers) >= CLUSTER_KDE_WINDOW // K:
+            fail(f"cluster kde K={K}: a worker's window expired")
+        _same_answers(f"cluster kde K={K}", got, want)
+        # the ingest rate over the rest of the news stream (no gate: the
+        # workers' windows expire), the short gate stream's being too short
+        ops.reset_launches()
+        secs_long = _cluster_feed(cl, khost[n_kde:n_long], device)
+        _add_launches(launches)
+        rows.append({"K": K, "points": n_kde, "worker_window":
+                     CLUSTER_KDE_WINDOW // K, "eh_eps": 0.01,
+                     "ingest_s_gate_stream": secs,
+                     "points_per_s_gate_stream": n_kde / secs,
+                     "points_long": n_long - n_kde, "ingest_s_long": secs_long,
+                     "points_per_s": (n_long - n_kde) / secs_long,
+                     "merge_ms": merge_ms,
+                     "queries_per_s": q_rate,
+                     "answers_equal_single_service": True,
+                     "device_bytes": sum(_state_bytes(w.state)
+                                         for w in cl.workers)})
+        cl.close()
+    single.close()
+    out["kde"] = rows
+
+    # --- RACE at the news shape -------------------------------------------
+    ccfg = race_service.RACEServiceConfig(
+        dim=KDE_DIM, L=96, W=96, hash_family="srp", k=2, seed=seed,
+        ingest_chunk=CHUNK, query_block=QUERY_BLOCK,
+        max_pending=SERVICE_CALL_ROWS)
+    single = race_service.RACEService(ccfg, device=device)
+    _cluster_feed(single, khost[:n_race], device)
+    rows = []
+    for K in workers:
+        cl = cluster.ClusterRACEService(ccfg, num_workers=K, merge_every=8,
+                                        device=device)
+        ops.reset_launches()
+        secs = _cluster_feed(cl, khost[:n_race], device)
+        merge_ms, _ = _timed_merge(cl, device)
+        got = cl.query(kqs)
+        q_rate = _timed_queries(cl.query, kqs, device)
+        _add_launches(launches)
+        _same_state(f"cluster race K={K}", single=single.state,
+                    merged=cl.merged_state())
+        _same_answers(f"cluster race K={K}", got, single.query(kqs))
+        rows.append({"K": K, "points": n_race, "ingest_s": secs,
+                     "points_per_s": n_race / secs, "merge_ms": merge_ms,
+                     "queries_per_s": q_rate,
+                     "state_equals_single_service": True,
+                     "device_bytes": sum(_state_bytes(w.state)
+                                         for w in cl.workers)})
+        cl.close()
+    single.close()
+    out["race"] = rows
+
+    # --- durability and failover (RACE) -----------------------------------
+    part = khost[:n_durable]
+    single = race_service.RACEService(ccfg, device=device)
+    _cluster_feed(single, part, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dcfg = dataclasses.replace(ccfg, snapshot_dir=f"{tmp}/durable",
+                                   snapshot_every=SERVICE_SNAPSHOT_EVERY // 4)
+        live = cluster.ClusterRACEService(dcfg, num_workers=2, device=device)
+        ops.reset_launches()
+        t_dur = _cluster_feed(live, part, device)
+        _add_launches(launches)
+        want = live.merged_state()
+        live.close()
+        rec = cluster.ClusterRACEService(dcfg, num_workers=2, device=device)
+        t0 = time.perf_counter()
+        replayed = rec.recover()
+        t_rec = time.perf_counter() - t0
+        _same_state("cluster race durable", live=want,
+                    recovered=rec.merged_state(), single=single.state)
+        rec.close()
+        out["durable"] = {"K": 2, "points": n_durable,
+                          "points_per_s_durable": n_durable / t_dur,
+                          "recovered_records": replayed, "recovery_s": t_rec,
+                          "device_bytes": 2 * _state_bytes(want)}
+
+        fcfg = dataclasses.replace(ccfg, snapshot_dir=f"{tmp}/failover",
+                                   snapshot_every=10**6)
+        cl = cluster.ClusterRACEService(
+            fcfg, num_workers=4, device=device,
+            failover=cluster.FailoverConfig(on_degraded="partial",
+                                            max_retries=1, backoff_s=0.001))
+        plan = faults.FaultPlan([
+            faults.FaultSpec(site="worker_1/engine.commit", mode="crash",
+                             hit=2),
+            faults.FaultSpec(site="worker_1/engine.recover", mode="crash",
+                             hit=1, count=99)])
+        ops.reset_launches()
+        with faults.installed(plan):
+            for i in range(0, part.shape[0], SERVICE_CALL_ROWS):
+                cl.ingest(part[i:i + SERVICE_CALL_ROWS])
+        _add_launches(launches)
+        h = cl.health()
+        if h["dead_workers"] != [1] or h["salvage_complete"] != [1]:
+            fail(f"cluster failover: dead {h['dead_workers']}, salvaged "
+                 f"{h['salvage_complete']}")
+        _same_state("cluster race after a dead worker's salvage",
+                    single=single.state, merged=cl.merged_state())
+        out["failover"] = {"K": 4, "points": n_durable,
+                           "device_bytes": sum(_state_bytes(w.state)
+                                               for w in cl.workers),
+                           "dead_workers": h["dead_workers"],
+                           "salvaged_rows": h["counters"]["salvaged_rows"],
+                           "coverage": h["coverage"],
+                           "merged_equals_single_service": True}
+        cl.close()
+    single.close()
+    emit({**out, "launches": launches})
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler over short main-path windows)
 # --------------------------------------------------------------------------
 
@@ -2344,6 +3286,10 @@ def main(argv=None) -> int:
     for row in rows:
         emit({"phase": "kernel_check", **row})
     services_run = phase_services(args.seed, sann_run, kde_run, device)
+    fleet_run = phase_fleet(args.seed, sann_run, kde_run, device)
+    cluster_run = phase_cluster(args.seed, sann_run, kde_run, device)
+    fleet_cluster = {k: fleet_run["launches"][k] + cluster_run["launches"][k]
+                     for k in launches}
     phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device)
     services_run["retrieval"].close()
     summary = []
@@ -2366,6 +3312,7 @@ def main(argv=None) -> int:
             "name": row["name"], "route": "cuda", "source": SOURCES[row["name"]],
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
             "services_launches": services_run["launches"].get(row["name"], 0),
+            "fleet_cluster_launches": fleet_cluster[row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -25,13 +25,20 @@
 //      (the reference's `overwritten[jnp.maximum(tables, 0)]` with its
 //      clamped gather, src/repro/core/sann.py `sann_commit_chunk`);
 //   2. sann_table_scatter_kernel, the ring append above, into `out`.
-// write_ptr and n_kept are int32 scalars on the device: the host never
-// waits.  Bound: bytes, one read and one write of the table (779 MB for the
+// write_ptr and n_kept are int32 arrays of T entries on the device (one per
+// tenant of a stacked fleet; T = 1 for one sketch): the host never waits.
+// The tables hold T * rows_per_tenant rows, and row r belongs to tenant
+// r / rows_per_tenant, so one launch commits every tenant of a fleet chunk.
+// Bound: bytes, one read and one write of the table (779 MB for the
 // SIFT1M-shaped cell, 0.23 ms at 3.35 TB/s), plus the scatter's.  The pass
 // is a grid-stride copy in 16-byte vectors, four in flight a thread, with
-// a few integer operations an id (no division: write_ptr is reduced once a
-// thread), where the plain PyTorch sequence materialised an int64 copy and
-// a gathered table.
+// a few integer operations an id (no division: each of a thread's four
+// vector streams caches its tenant's range and reduced write_ptr, and
+// divides only when a vector leaves that range, about once every 13
+// strides at the fleet's tenant size), where the plain PyTorch sequence
+// materialised an int64 copy and a gathered table.  When a tenant's span is
+// not a whole number of vectors a scalar pass, cached the same way, runs
+// instead.
 #include "common.cuh"
 
 namespace {
@@ -66,42 +73,91 @@ __device__ __forceinline__ int tombstone(int v, int wp, int n_kept,
 
 constexpr int kUnroll = 4;   // 16-byte vectors in flight per thread
 
+// A tenant's range of units (16-byte vectors or single ids), its
+// write_ptr reduced into [0, capacity) and its n_kept.
+struct Tenant {
+  long long lo, hi;
+  int wp, nk;
+};
+
+// The tenant owning unit `i`; a tenant spans `span` units.
+__device__ __forceinline__ Tenant tenant_of(long long i, long long span,
+                                            const int* __restrict__ wp_p,
+                                            const int* __restrict__ nk_p,
+                                            int capacity) {
+  const long long t = i / span;
+  Tenant r;
+  r.lo = t * span;
+  r.hi = r.lo + span;
+  r.wp = static_cast<int>(repro_torch::floor_mod(wp_p[t], capacity));
+  r.nk = nk_p[t];
+  return r;
+}
+
+__device__ __forceinline__ int4 tombstone4(int4 x, const Tenant& t,
+                                           int capacity) {
+  return make_int4(tombstone(x.x, t.wp, t.nk, capacity),
+                   tombstone(x.y, t.wp, t.nk, capacity),
+                   tombstone(x.z, t.wp, t.nk, capacity),
+                   tombstone(x.w, t.wp, t.nk, capacity));
+}
+
+// Vector pass: each tenant spans `span4` whole 16-byte vectors.
 __global__ void __launch_bounds__(kThreads) sann_table_scatter_tombstone(
     const int* __restrict__ in, int* __restrict__ out,
     const int* __restrict__ write_ptr_p, const int* __restrict__ n_kept_p,
-    long long n, int capacity) {
-  const int wp = static_cast<int>(repro_torch::floor_mod(*write_ptr_p, capacity));
-  const int nk = *n_kept_p;
+    long long n, long long span4, int capacity) {
   const long long n4 = n / 4;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const int4* in4 = reinterpret_cast<const int4*>(in);
   int4* out4 = reinterpret_cast<int4*>(out);
   long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  Tenant ten[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) ten[u].lo = ten[u].hi = -1;
   for (; i + (kUnroll - 1) * stride < n4; i += kUnroll * stride) {
     int4 x[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) x[u] = __ldcs(in4 + i + u * stride);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      int4 y;
-      y.x = tombstone(x[u].x, wp, nk, capacity);
-      y.y = tombstone(x[u].y, wp, nk, capacity);
-      y.z = tombstone(x[u].z, wp, nk, capacity);
-      y.w = tombstone(x[u].w, wp, nk, capacity);
-      out4[i + u * stride] = y;
+      const long long j = i + u * stride;
+      if (j >= ten[u].hi || j < ten[u].lo)
+        ten[u] = tenant_of(j, span4, write_ptr_p, n_kept_p, capacity);
+      out4[j] = tombstone4(x[u], ten[u], capacity);
     }
   }
   for (; i < n4; i += stride) {
     const int4 x = __ldcs(in4 + i);
-    out4[i] = make_int4(tombstone(x.x, wp, nk, capacity),
-                        tombstone(x.y, wp, nk, capacity),
-                        tombstone(x.z, wp, nk, capacity),
-                        tombstone(x.w, wp, nk, capacity));
+    if (i >= ten[0].hi || i < ten[0].lo)
+      ten[0] = tenant_of(i, span4, write_ptr_p, n_kept_p, capacity);
+    out4[i] = tombstone4(x, ten[0], capacity);
   }
-  // the n % 4 tail
+  // the n % 4 tail (only with one tenant: tenant 0)
   const long long t = n4 * 4 + static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
-  if (t < n) out[t] = tombstone(in[t], wp, nk, capacity);
+  if (t < n) {
+    const Tenant last = tenant_of(t, 4 * span4, write_ptr_p, n_kept_p,
+                                  capacity);
+    out[t] = tombstone(in[t], last.wp, last.nk, capacity);
+  }
+}
+
+// Scalar pass, for tenants whose span is not a whole number of vectors.
+__global__ void __launch_bounds__(kThreads) sann_table_scatter_tombstone1(
+    const int* __restrict__ in, int* __restrict__ out,
+    const int* __restrict__ write_ptr_p, const int* __restrict__ n_kept_p,
+    long long n, long long span, int capacity) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  Tenant ten;
+  ten.lo = ten.hi = -1;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n; i += stride) {
+    if (i >= ten.hi || i < ten.lo)
+      ten = tenant_of(i, span, write_ptr_p, n_kept_p, capacity);
+    out[i] = tombstone(__ldcs(in + i), ten.wp, ten.nk, capacity);
+  }
 }
 
 int n_sms() {
@@ -129,21 +185,33 @@ extern "C" int sann_table_scatter_launch(int* tables, const int* table_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both launches of one commit; `in` and `out` are distinct (L, NB, cap)
-// tables, 16-byte aligned.  Returns the first launch error (0 if none).
+// Both launches of one commit; `in` and `out` are distinct (T * R, NB, cap)
+// tables, 16-byte aligned, R = rows_per_tenant; write_ptr and n_kept hold T
+// entries.  Returns the first launch error (0 if none).
 extern "C" int sann_table_commit_launch(
     const int* in, int* out, const int* table_ptr, const int* s_l,
     const int* s_c, const int* rank, const int* val, const unsigned char* mask,
     const int* write_ptr, const int* n_kept, int E, int L, int NB, int cap,
-    int capacity, void* stream) {
+    int capacity, int rows_per_tenant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n = static_cast<long long>(L) * NB * cap;
   if (n > 0) {
-    const long long want = (n / 4 + kThreads - 1) / kThreads;
+    const long long span = static_cast<long long>(rows_per_tenant) * NB * cap;
+    // one tenant: every vector (and the n % 4 tail) is tenant 0's
+    const bool one = rows_per_tenant >= L;
+    const bool vec = one || span % 4 == 0;
+    const long long lanes = vec ? n / 4 : n;
+    const long long want = (lanes + kThreads - 1) / kThreads;
     const int blocks = static_cast<int>(
         want < 1 ? 1 : (want < 8LL * n_sms() ? want : 8LL * n_sms()));
-    sann_table_scatter_tombstone<<<blocks, kThreads, 0, s>>>(
-        in, out, write_ptr, n_kept, n, capacity);
+    if (vec) {
+      sann_table_scatter_tombstone<<<blocks, kThreads, 0, s>>>(
+          in, out, write_ptr, n_kept, n, one ? n / 4 + 1 : span / 4,
+          capacity);
+    } else {
+      sann_table_scatter_tombstone1<<<blocks, kThreads, 0, s>>>(
+          in, out, write_ptr, n_kept, n, span, capacity);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

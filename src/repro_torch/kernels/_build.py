@@ -43,7 +43,7 @@ SIGNATURES = {
     "race_hist_launch": [P, P, I, I, I, P],
     "sann_table_scatter_launch": [P, P, P, P, P, P, P, I, I, I, I, P],
     "sann_table_commit_launch": [P, P, P, P, P, P, P, P, P, P,
-                                 I, I, I, I, I, P],
+                                 I, I, I, I, I, I, P],
     "batch_score_topk_launch": [P, P, P, P, P, I, I, I, I, P],
     "batch_score_topk_gather_launch": [P, P, P, P, P, P, I, I, I, I, I, P],
     "swakde_segment_pass_launch": [P] * 10 + [I] * 9 + [P],

@@ -17,7 +17,9 @@
 * ``sann_table_commit`` (the same source) is the S-ANN commit's table
   update: the tombstone pass of the commit fused into one vectorised copy
   of the old tables, then the ring append into the copy.  It counts as one
-  ``sann_table_scatter`` launch.
+  ``sann_table_scatter`` launch.  A stacked fleet's tables (T tenants of
+  ``rows_per_tenant`` rows each, one write pointer and kept count per
+  tenant) commit in the same single launch.
 
 See the source notes for each kernel's bound and design.
 """
@@ -136,16 +138,36 @@ def sann_table_scatter(tables, table_ptr, s_l, s_c, rank, val, mask):
     return tables
 
 
+def tenant_rows(tables, write_ptr, rows_per_tenant) -> tuple:
+    """``(T, rows_per_tenant)`` of a commit over ``tables (T * R, NB, cap)``
+    with ``write_ptr`` of T entries (a 0-d pointer is one tenant)."""
+    rows = tables.shape[0]
+    R = rows if rows_per_tenant is None else int(rows_per_tenant)
+    if R < 1 or rows % R:
+        raise ValueError(f"sann_table_commit: {rows} table rows are not a "
+                         f"whole number of tenants of {R} rows")
+    T = rows // R
+    if write_ptr.numel() != T:
+        raise ValueError(f"sann_table_commit: {write_ptr.numel()} write "
+                         f"pointers for {T} tenants")
+    return T, R
+
+
 def sann_table_commit(tables, table_ptr, s_l, s_c, rank, val, mask,
-                      write_ptr, n_kept, capacity: int):
+                      write_ptr, n_kept, capacity: int,
+                      rows_per_tenant=None):
     """The S-ANN commit's table update (contract:
     `ref.sann_table_commit_ref`) → new tables; ``tables`` is not modified.
-    ``write_ptr`` and ``n_kept`` are int32 scalars on the card."""
+    ``write_ptr`` and ``n_kept`` are int32 tensors on the card, one entry
+    per tenant (a 0-d scalar for one sketch); row ``r`` of ``tables``
+    belongs to tenant ``r // rows_per_tenant`` (default: every row to one
+    tenant).  One launch whatever the number of tenants."""
     L, NB, cap, E = _check_entries("sann_table_commit", tables, table_ptr,
                                    s_l, s_c, rank, val, mask)
-    _build.check_all("sann_table_commit", {"write_ptr": write_ptr.reshape(1),
-                                           "n_kept": n_kept.reshape(1)},
-                     torch.int32, (1,))
+    T, R = tenant_rows(tables, write_ptr, rows_per_tenant)
+    _build.check_all("sann_table_commit", {"write_ptr": write_ptr.reshape(T),
+                                           "n_kept": n_kept.reshape(T)},
+                     torch.int32, (T,))
     if capacity < 1:
         raise ValueError(f"sann_table_commit: capacity {capacity} < 1")
     if tables.data_ptr() % 16:
@@ -153,5 +175,5 @@ def sann_table_commit(tables, table_ptr, s_l, s_c, rank, val, mask,
     out = torch.empty_like(tables)
     _build.launch("sann_table_scatter", "sann_table_commit_launch",
                   tables, out, table_ptr, s_l, s_c, rank, val, mask,
-                  write_ptr, n_kept, E, L, NB, cap, capacity)
+                  write_ptr, n_kept, E, L, NB, cap, capacity, R)
     return out

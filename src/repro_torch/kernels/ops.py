@@ -105,14 +105,17 @@ def sann_table_scatter(tables, table_ptr, s_l, s_c, rank, val, mask):
 
 
 def sann_table_commit(tables, table_ptr, s_l, s_c, rank, val, mask,
-                      write_ptr, n_kept, capacity: int):
+                      write_ptr, n_kept, capacity: int, rows_per_tenant=None):
     """The S-ANN commit's table update: tombstone the ids of the slots
     recycled this chunk, then the ring append (see
-    `ref.sann_table_commit_ref`) → new tables; ``tables`` is not modified."""
+    `ref.sann_table_commit_ref`) → new tables; ``tables`` is not modified.
+    ``write_ptr`` / ``n_kept`` hold one entry per tenant of a stacked fleet
+    whose tenants own ``rows_per_tenant`` table rows each (default: one
+    tenant, scalars allowed)."""
     fn = _ic.sann_table_commit if use_kernel(tables) \
         else ref.sann_table_commit_ref
     return fn(tables, table_ptr, s_l, s_c, rank, val, mask, write_ptr,
-              n_kept, capacity)
+              n_kept, capacity, rows_per_tenant)
 
 
 def sketch_decode_attn(q, k, v, block_ids, n_live, kv_len,

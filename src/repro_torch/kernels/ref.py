@@ -276,17 +276,29 @@ def sann_table_scatter_ref(
 
 
 def sann_table_commit_ref(tables, table_ptr, s_l, s_c, rank, val, mask,
-                          write_ptr, n_kept, capacity: int) -> torch.Tensor:
+                          write_ptr, n_kept, capacity: int,
+                          rows_per_tenant=None) -> torch.Tensor:
     """The S-ANN commit's table update → new tables (``tables`` is not
     modified): every slot id ``v >= 0`` that points at a slot recycled this
     chunk, i.e. ring offset ``(v - write_ptr) mod capacity < n_kept``, is
     tombstoned to -1 (an id at or past ``capacity`` reads the offset of slot
     ``capacity - 1``, the reference's clamped gather), then
-    `sann_table_scatter_ref` appends the chunk into the result."""
-    ring_off = (torch.arange(capacity, dtype=torch.int32, device=tables.device)
-                - write_ptr) % capacity
-    overwritten = ring_off < n_kept
-    stale = (tables >= 0) & overwritten[tables.clamp(0, capacity - 1).long()]
+    `sann_table_scatter_ref` appends the chunk into the result.
+
+    A stacked fleet passes ``tables (T * R, NB, cap)`` with
+    ``rows_per_tenant = R`` and ``write_ptr`` / ``n_kept`` of shape
+    ``(T,)``: row ``r`` is tombstoned against tenant ``r // R``'s pointers.
+    The default is one tenant (0-d or one-entry pointers)."""
+    rows = tables.shape[0]
+    R = rows if rows_per_tenant is None else int(rows_per_tenant)
+    T = rows // R
+    wp = write_ptr.reshape(T, 1)
+    ring_off = (torch.arange(capacity, dtype=torch.int32,
+                             device=tables.device)[None, :] - wp) % capacity
+    overwritten = ring_off < n_kept.reshape(T, 1)               # (T, capacity)
+    tenant = (torch.arange(rows, device=tables.device) // R)[:, None, None]
+    stale = (tables >= 0) & overwritten[
+        tenant, tables.clamp(0, capacity - 1).long()]
     out = torch.where(stale, -1, tables)
     return sann_table_scatter_ref(out, table_ptr, s_l, s_c, rank, val, mask)
 

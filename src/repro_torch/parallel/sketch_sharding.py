@@ -121,6 +121,14 @@ def sharded_sann_commit_chunk(state: sann.SANNState, prep: sann.SANNPrep,
     return sann.sann_commit_chunk(state, prep, cfg)
 
 
+def sharded_sann_merge(a: sann.SANNState, b: sann.SANNState, params,
+                       cfg: sann.SANNConfig, ctx: ShardingCtx) -> sann.SANNState:
+    """Disjoint-stream union (`core.sann.sann_merge`), the cluster
+    coordinator's S-ANN merge."""
+    _single(ctx, "sharded_sann_merge")
+    return sann.sann_merge(a, b, params, cfg)
+
+
 def sharded_sann_delete(state: sann.SANNState, params, x,
                         cfg: sann.SANNConfig, ctx: ShardingCtx,
                         tol: float = 1e-5) -> sann.SANNState:

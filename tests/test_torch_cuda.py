@@ -105,6 +105,39 @@ def test_sann_table_commit_kernel_matches_plain(dev, shape, write_ptr, n_kept):
     assert torch.equal(tables, before)
 
 
+@pytest.mark.parametrize("cap", [4, 3])
+@pytest.mark.parametrize("T", [1, 8, 256])
+def test_sann_table_commit_tenant_axis_kernel_matches_plain(dev, T, cap):
+    """A stacked fleet's commit: ``(T * 3, 50, cap)`` tables with per-tenant
+    ``write_ptr`` / ``n_kept`` (some tenants wrapping their ring), one
+    launch whatever T is.  cap 4 takes the 16-byte vector pass (a tenant
+    spans whole vectors), cap 3 the scalar pass."""
+    L, NB, C = 3, 50, 20
+    g = torch.Generator(device=dev).manual_seed(T * 10 + cap)
+    tables = torch.randint(-1, C + 4, (T * L, NB, cap), generator=g,
+                           device=dev, dtype=torch.int32)
+    ptr = torch.randint(0, 30, (T * L, NB), generator=g, device=dev,
+                        dtype=torch.int32)
+    s_l = torch.arange(T * L, device=dev).repeat_interleave(NB * cap).int()
+    s_c = torch.arange(NB, device=dev).repeat_interleave(cap).repeat(T * L).int()
+    rank = torch.arange(cap, device=dev).repeat(T * L * NB).int()
+    val = torch.randint(-1, C, s_l.shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    mask = torch.rand(s_l.shape, generator=g, device=dev) < 0.6
+    wp = torch.randint(0, C, (T,), generator=g, device=dev, dtype=torch.int32)
+    nk = torch.randint(0, C + 3, (T,), generator=g, device=dev,
+                       dtype=torch.int32)
+    before = tables.clone()
+    ops.reset_launches()
+    got = ops.sann_table_commit(tables, ptr, s_l, s_c, rank, val, mask, wp, nk,
+                                C, rows_per_tenant=L)
+    assert ops.LAUNCHES["sann_table_scatter"] == 1
+    want = ref.sann_table_commit_ref(tables, ptr, s_l, s_c, rank, val, mask,
+                                     wp, nk, C, rows_per_tenant=L)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(tables, before)
+
+
 def _assert_topk_equal_or_near_tie(d_k, i_k, d_r, i_r, full):
     torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-6)
     a = torch.gather(full, 1, i_k.long())

@@ -419,3 +419,46 @@ def test_sann_table_commit_matches_reference(write_ptr, n_kept):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(t_tables.numpy(), tables)   # input untouched
     assert (tables >= C).any() and (got.numpy() == -1).sum() > (tables == -1).sum()
+
+
+
+def test_sann_table_commit_tenant_axis_matches_single_tenant_commits():
+    """The tenant axis of `sann_table_commit_ref` (a stacked fleet's
+    ``(T * L, NB, cap)`` tables, per-tenant ``write_ptr`` / ``n_kept`` of
+    shape ``(T,)``, ``rows_per_tenant = L``): at T = 1 it is today's call
+    with 0-d pointers, bit for bit; at T = 3 it equals three single-tenant
+    commits, one of them wrapping its ring (write_ptr + n_kept > capacity)
+    and the others not."""
+    cfg, (s_l, s_c, rank), mask, _ = _commit_entries()
+    C = 20
+    L, NB, cap = cfg.L, cfg.n_buckets, cfg.bucket_cap
+    rng = np.random.default_rng(7)
+    T = 3
+    tables = rng.integers(-1, C + 4, size=(T, L, NB, cap)).astype(np.int32)
+    ptr = rng.integers(0, 50, size=(T, L, NB)).astype(np.int32)
+    vals = rng.integers(-1, C, size=(T,) + s_l.shape).astype(np.int32)
+    wp = np.array([3, 17, 0], np.int32)          # tenant 1 wraps
+    nk = np.array([9, 9, 5], np.int32)
+    assert wp[1] + nk[1] > C and (wp + nk)[[0, 2]].max() <= C
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    single = [tops.sann_table_commit(
+        t(tables[i]), t(ptr[i]), t(s_l), t(s_c), t(rank), t(vals[i]), t(mask),
+        torch.tensor(int(wp[i]), dtype=torch.int32),
+        torch.tensor(int(nk[i]), dtype=torch.int32), C) for i in range(T)]
+    # T = 1: (1,)-shaped pointers and rows_per_tenant = L are today's call
+    one = tops.sann_table_commit(
+        t(tables[0]), t(ptr[0]), t(s_l), t(s_c), t(rank), t(vals[0]), t(mask),
+        t(wp[:1]), t(nk[:1]), C, rows_per_tenant=L)
+    torch.testing.assert_close(one, single[0], rtol=0, atol=0)
+    stacked = tops.sann_table_commit(
+        t(tables.reshape(T * L, NB, cap)), t(ptr.reshape(T * L, NB)),
+        t(np.concatenate([s_l + i * L for i in range(T)]).astype(np.int32)),
+        t(np.tile(s_c, T)), t(np.tile(rank, T)), t(vals.reshape(-1)),
+        t(np.tile(mask, T)), t(wp), t(nk), C, rows_per_tenant=L)
+    torch.testing.assert_close(stacked.view(T, L, NB, cap),
+                               torch.stack(single), rtol=0, atol=0)
+    assert not torch.equal(single[0], single[1])
+    from repro_torch.kernels import ingest_commit
+    with pytest.raises(ValueError, match="write pointers"):
+        ingest_commit.tenant_rows(t(tables.reshape(T * L, NB, cap)), t(wp[:2]),
+                                  L)

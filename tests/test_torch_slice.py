@@ -130,9 +130,13 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 def test_port_source_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent.parent / "chip_smoke.py"]
-    assert len(files) >= 30
+    assert len(files) >= 51
     packages = {f.parent.name for f in files}
-    assert {"core", "kernels", "configs", "models", "serve"} <= packages
+    assert {"core", "kernels", "configs", "models", "serve", "persist",
+            "parallel", "checkpoint"} <= packages
+    names = {f"{f.parent.name}/{f.name}" for f in files}
+    assert {"core/fleet.py", "serve/tenant_fleet.py", "serve/cluster.py",
+            "parallel/sketch_sharding.py"} <= names
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
 

@@ -75,3 +75,31 @@ def assert_topk_match(d2_p, idx_p, d2_r, idx_r, exact_d2):
         dp, dr = exact_d2[b, idx_p[b, j]], exact_d2[b, idx_r[b, j]]
         tie = (dp == dr) or abs(dp - dr) <= ATOL + RTOL * abs(dr)
         assert tie, f"id mismatch at ({b}, {j}) without a near-tie: {dp} vs {dr}"
+
+
+def grid_data(n, d, seed=0, scale=1.0):
+    """Rows on a 1/16 grid: every product with `exact_params`' 1/8-grid
+    parameters is exact in fp32, so both packages hash alike whatever their
+    summation order."""
+    rng = np.random.default_rng(seed)
+    return (np.round(rng.normal(size=(n, d)) * scale * 16) / 16).astype(
+        np.float32)
+
+
+def exact_params(family, seed, dim, L, k, n_buckets, w=None):
+    """Reference SRP or p-stable params on a 1/8 grid (see `grid_data`)."""
+    rng = np.random.default_rng(seed)
+    proj = (np.round(rng.normal(size=(dim, L * k)) * 8) / 8).astype(np.float32)
+    mix = jnp.asarray(_mix(rng, L, k))
+    if family == "srp":
+        return jlsh.SRPParams(proj=jnp.asarray(proj), mix=mix, L=L, k=k,
+                              n_buckets=n_buckets)
+    bias = (np.floor(rng.uniform(0, w, L * k) * 8) / 8).astype(np.float32)
+    return jlsh.PStableParams(proj=jnp.asarray(proj), bias=jnp.asarray(bias),
+                              mix=mix, w=w, L=L, k=k, n_buckets=n_buckets)
+
+
+def port_params(ref_params, device="cpu"):
+    """The reference's params as the port's, on ``device``."""
+    from repro_torch import convert
+    return convert.params_from_numpy(fields(ref_params), device)
