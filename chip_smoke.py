@@ -67,7 +67,18 @@ user calls, at full width:
   worker windows 65 536 / K, nothing expiring: answers equal one service's)
   and ``ClusterRACEService`` (equal to one service over the stream), a
   durable cluster recovered, and a worker killed at a ``faults`` site and
-  salvaged.
+  salvaged;
+* **the RPC cluster** (``repro_torch.net``): the same clusters with each
+  worker a spawned process and CUDA context of its own on the card, one
+  RPC a chunk over the reference's wire format: RACE at K = 1, 2, 4,
+  SW-AKDE at K = 4 and S-ANN at K = 4 (n_max 250 000 a worker: a worker's
+  snapshot must fit the protocol's 256 MiB frame), each equal bit for bit
+  to the in-process cluster on the same stream; a K = 2, n_max 1 000 000
+  S-ANN snapshot refused by the frame cap; a durable K = 2 RACE cluster
+  with a dropped ``net.send`` retried in place, stopped and recovered; a
+  SIGKILLed worker respawned and recovered, and with respawn off salvaged.
+  Each worker process must launch its commit kernels (its ``K_STATS``
+  reply), and no worker process may outlive ``close()``.
 
 Keep decisions come from a threefry key on each device.  Kernel launch
 counts are zeroed just before each path and read just after; the SW-AKDE
@@ -160,6 +171,13 @@ FLEET_DURABLE_CHUNKS, FLEET_SNAPSHOT_EVERY, FLEET_QUERIES = 4, 4, 2048
 # every worker's window (65 536 / K) so nothing expires
 CLUSTER_WORKERS = (1, 2, 4)
 CLUSTER_KDE_WINDOW, CLUSTER_KDE_N, CLUSTER_DURABLE_N = 65_536, 61_440, 262_144
+# the rpc_cluster phase: the cluster phase's workloads, each worker a spawned
+# process; S-ANN at n_max 250 000 a worker, so that a worker's snapshot
+# (164.5 MB) fits the wire protocol's 256 MiB frame (at 1 000 000 it is 434
+# MB: that run must be refused); SW-AKDE and S-ANN merge at query time only
+# (each merge pulls every worker's snapshot over TCP), RACE every 8 commits
+RPC_SANN_NMAX, RPC_CAP_NMAX = 250_000, 1_000_000
+RPC_MERGE_EVERY, RPC_TIMEOUT_S = 10**9, 120.0
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -2988,7 +3006,7 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
     single = kde_service.KDEService(kcfg, device=device)
     _cluster_feed(single, khost[:n_kde], device)
     want = single.query(kqs)
-    rows = []
+    rows, kept_kde = [], {}
     for K in workers:
         cl = cluster.ClusterKDEService(
             dataclasses.replace(kcfg, window=CLUSTER_KDE_WINDOW // K),
@@ -3002,11 +3020,13 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
         if max(w.steps for w in cl.workers) >= CLUSTER_KDE_WINDOW // K:
             fail(f"cluster kde K={K}: a worker's window expired")
         _same_answers(f"cluster kde K={K}", got, want)
+        kept_kde[K] = {"gate": (cl.merged_state(), got)}
         # the ingest rate over the rest of the news stream (no gate: the
         # workers' windows expire), the short gate stream's being too short
         ops.reset_launches()
         secs_long = _cluster_feed(cl, khost[n_kde:n_long], device)
         _add_launches(launches)
+        kept_kde[K]["end"] = (cl.merged_state(), cl.query(kqs))
         rows.append({"K": K, "points": n_kde, "worker_window":
                      CLUSTER_KDE_WINDOW // K, "eh_eps": 0.01,
                      "ingest_s_gate_stream": secs,
@@ -3029,7 +3049,7 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
         max_pending=SERVICE_CALL_ROWS)
     single = race_service.RACEService(ccfg, device=device)
     _cluster_feed(single, khost[:n_race], device)
-    rows = []
+    rows, kept_race = [], {}
     for K in workers:
         cl = cluster.ClusterRACEService(ccfg, num_workers=K, merge_every=8,
                                         device=device)
@@ -3039,8 +3059,9 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
         got = cl.query(kqs)
         q_rate = _timed_queries(cl.query, kqs, device)
         _add_launches(launches)
+        kept_race[K] = (cl.merged_state(), got)
         _same_state(f"cluster race K={K}", single=single.state,
-                    merged=cl.merged_state())
+                    merged=kept_race[K][0])
         _same_answers(f"cluster race K={K}", got, single.query(kqs))
         rows.append({"K": K, "points": n_race, "ingest_s": secs,
                      "points_per_s": n_race / secs, "merge_ms": merge_ms,
@@ -3109,6 +3130,331 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
         cl.close()
     single.close()
     emit({**out, "launches": launches})
+    # what the rpc_cluster phase holds its clusters to: the same streams,
+    # configurations and in-process merged states and answers
+    return {"launches": launches, "shost": shost, "khost": khost,
+            "qs": qs, "kqs": kqs, "rcfg": rcfg, "kcfg": kcfg, "ccfg": ccfg,
+            "n_kde": n_kde, "n_race": n_race, "n_durable": n_durable,
+            "race": kept_race, "kde": kept_kde}
+
+
+# --------------------------------------------------------------------------
+# the RPC cluster: each worker a spawned CUDA process (repro_torch.net)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _rpc_open(make):
+    """The RPC cluster ``make()`` builds, with its start-up seconds (every
+    worker process spawned and connected); closed on the way out, after
+    which no worker process may be alive."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    cl = make()
+    start_s = time.perf_counter() - t0
+    try:
+        yield cl, start_s
+    finally:
+        cl.close()
+    left = [p.pid for p in multiprocessing.active_children()
+            if p.name.startswith("sketch-worker")]
+    if left:
+        fail(f"rpc cluster: worker processes {left} outlived close()")
+
+
+def _worker_launches(cl, acc, need, device):
+    """Add each live worker process's kernel launch counts (its ``K_STATS``
+    reply) to ``acc``; on the card each must have launched ``need``."""
+    for w, eng in enumerate(cl.workers):
+        if w in cl._dead:
+            continue
+        got = eng.stats()["launches"]
+        for k in acc:
+            acc[k] += got[k]
+        missing = [k for k in need if got[k] <= 0]
+        if device.type == "cuda" and missing:
+            fail(f"rpc worker {w}: its process never launched {missing}")
+
+
+def _timed_rpc_merge(cl, device):
+    """Ms to pull every worker's snapshot over its channel onto the card,
+    and ms to fold them on the coordinator."""
+    t0 = time.perf_counter()
+    states = [w.snapshot()[0] for w in cl.workers]
+    sync(device)
+    t1 = time.perf_counter()
+    if len(states) > 1:
+        cl._merge_fn(states)
+    sync(device)
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+def _same_sann_answers(name, got_cr, want_cr, got_topk, want_topk):
+    """(c, r) and top-k ids exact; distances within the scorer's
+    tolerance (fp32 sums in another order)."""
+    import numpy as np
+    for f in ("index", "found", "n_candidates"):
+        if not np.array_equal(getattr(got_cr, f), getattr(want_cr, f)):
+            fail(f"{name}: (c, r) {f} differs")
+    if not np.array_equal(got_topk[0], want_topk[0]):
+        fail(f"{name}: top-{TOPK} ids differ")
+    for g, w in ((got_cr.distance, want_cr.distance),
+                 (got_topk[1], want_topk[1])):
+        if not np.allclose(g, w, rtol=RTOL, atol=ATOL):
+            fail(f"{name}: distances outside rtol {RTOL}, atol {ATOL}")
+
+
+def rpc_frame_cap(cfg, shost, rc, device):
+    """An S-ANN RPC cluster at K = 2 whose worker snapshot is larger than
+    the protocol's frame cap: the first merge must be refused by the
+    worker, naming the cap, well inside the RPC timeout."""
+    from repro_torch.net import cluster as rpc
+    from repro_torch.net import protocol
+    with _rpc_open(lambda: rpc.RPCClusterRetrievalService(
+            cfg, num_workers=2, merge_every=RPC_MERGE_EVERY, rpc=rc,
+            device=device)) as (cl, start_s):
+        cl.ingest(shost[:CHUNK])
+        t0 = time.perf_counter()
+        try:
+            cl.merged_state()
+        except protocol.RemoteError as e:
+            refusal = str(e)
+        else:
+            fail("rpc retrieval: a snapshot past MAX_BODY went through")
+        refuse_s = time.perf_counter() - t0
+        if "MAX_BODY" not in refusal or refuse_s >= rc.rpc_timeout_s:
+            fail(f"rpc retrieval: the frame cap's refusal ({refuse_s:.1f} s)"
+                 f" does not name the cap: {refusal}")
+        snap_mb = _state_bytes(cl._template.state) / 1e6
+    return {"K": 2, "n_max": cfg.n_max, "start_s": start_s,
+            "snapshot_mb_per_worker": snap_mb, "refused_after_s": refuse_s,
+            "refusal": refusal[:300]}
+
+
+def phase_rpc_cluster(cluster_run, device, workers=CLUSTER_WORKERS,
+                      sann_nmax=RPC_SANN_NMAX, cap_nmax=RPC_CAP_NMAX):
+    """The multi-process cluster (`repro_torch.net`): every worker a
+    spawned process with its own CUDA context on the one card, the
+    coordinator the in-process cluster's with `RemoteEngine` proxies,
+    each chunk one RPC, each merge every worker's snapshot over TCP.  On
+    the `cluster` phase's streams and configurations, fed the same way:
+
+    * `RPCClusterRACEService` at K = 1, 2, 4 (news shape, SRP): merged
+      counters and answers equal the in-process cluster's at the same K;
+    * `RPCClusterKDEService` at K = 4 (eps 0.01, worker windows 65 536 /
+      K): the gate stream, then the rest, each equal to the in-process
+      cluster's state and answers;
+    * `RPCClusterRetrievalService` at K = 4, SIFT shape, n_max 250 000 a
+      worker (a snapshot must fit the protocol's 256 MiB frame): state,
+      (c, r) and top-50 ids equal the in-process cluster's at the same
+      configuration, distances within the scorer's tolerance; at K = 2 and
+      n_max 1 000 000 the first snapshot must be refused, naming the cap;
+    * durable RACE at K = 2: a ``net.send`` drop retried in place, every
+      worker stopped and a fresh cluster recovered; worker 1 SIGKILLed
+      mid-stream and respawned (bit-exact), and with ``respawn=False``
+      declared dead and salvaged (the merge still one service's).
+
+    Each worker's process must launch its commit kernels on the card, and
+    no worker process may outlive its cluster's ``close()``."""
+    import dataclasses
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.net import cluster as rpc
+    from repro_torch.net import protocol
+    from repro_torch.persist import faults
+    from repro_torch.serve import cluster, race_service
+
+    khost, kqs = cluster_run["khost"], cluster_run["kqs"]
+    shost, qs = cluster_run["shost"], cluster_run["qs"]
+    ccfg, n_race = cluster_run["ccfg"], cluster_run["n_race"]
+    rc = rpc.RPCConfig(rpc_timeout_s=RPC_TIMEOUT_S)
+    out = {"phase": "rpc_cluster", "workers": list(workers),
+           "call_rows": SERVICE_CALL_ROWS, "rpc_timeout_s": RPC_TIMEOUT_S,
+           "max_body": protocol.MAX_BODY}
+    coord = {k: 0 for k in ops.LAUNCHES}        # the coordinator's launches
+    in_workers = {k: 0 for k in ops.LAUNCHES}   # the worker processes'
+
+    # --- RACE at the news shape, K = 1, 2, 4 ------------------------------
+    rows = []
+    for K in workers:
+        with _rpc_open(lambda: rpc.RPCClusterRACEService(
+                ccfg, num_workers=K, merge_every=8, rpc=rc,
+                device=device)) as (cl, start_s):
+            ops.reset_launches()
+            secs = _cluster_feed(cl, khost[:n_race], device)
+            pull_ms, fold_ms = _timed_rpc_merge(cl, device)
+            got = cl.query(kqs)
+            q_rate = _timed_queries(cl.query, kqs, device)
+            _add_launches(coord)
+            _worker_launches(cl, in_workers, ("srp_hash", "race_hist"),
+                             device)
+            want_state, want = cluster_run["race"][K]
+            _same_state(f"rpc race K={K}", inprocess=want_state,
+                        rpc=cl.merged_state())
+            _same_answers(f"rpc race K={K}", got, want)
+        rows.append({"K": K, "points": n_race, "start_s": start_s,
+                     "ingest_s": secs, "points_per_s": n_race / secs,
+                     "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
+                     "queries_per_s": q_rate,
+                     "equals_inprocess_cluster": True})
+    out["race"] = rows
+
+    # --- SW-AKDE at the news shape, eps 0.01, K = 4 -----------------------
+    K = max(workers)
+    n_kde, n_long = cluster_run["n_kde"], khost.shape[0]
+    kcfg = dataclasses.replace(cluster_run["kcfg"],
+                               window=CLUSTER_KDE_WINDOW // K)
+    with _rpc_open(lambda: rpc.RPCClusterKDEService(
+            kcfg, num_workers=K, merge_every=RPC_MERGE_EVERY, rpc=rc,
+            device=device)) as (cl, start_s):
+        ops.reset_launches()
+        secs = _cluster_feed(cl, khost[:n_kde], device)
+        want_state, want = cluster_run["kde"][K]["gate"]
+        _same_state(f"rpc kde K={K} gate stream", inprocess=want_state,
+                    rpc=cl.merged_state())
+        _same_answers(f"rpc kde K={K} gate stream", cl.query(kqs), want)
+        secs_long = _cluster_feed(cl, khost[n_kde:n_long], device)
+        pull_ms, fold_ms = _timed_rpc_merge(cl, device)
+        got = cl.query(kqs)
+        q_rate = _timed_queries(cl.query, kqs, device)
+        _add_launches(coord)
+        _worker_launches(cl, in_workers, ("srp_hash", "swakde_segment_pass"),
+                         device)
+        want_state, want = cluster_run["kde"][K]["end"]
+        _same_state(f"rpc kde K={K}", inprocess=want_state,
+                    rpc=cl.merged_state())
+        _same_answers(f"rpc kde K={K}", got, want)
+        snap_mb = _state_bytes(cl._template.state) / 1e6
+    out["kde"] = {"K": K, "worker_window": CLUSTER_KDE_WINDOW // K,
+                  "eh_eps": kcfg.eh_eps, "start_s": start_s,
+                  "points_gate": n_kde, "ingest_s_gate": secs,
+                  "points_long": n_long - n_kde, "ingest_s_long": secs_long,
+                  "points_per_s": (n_long - n_kde) / secs_long,
+                  "snapshot_mb_per_worker": snap_mb,
+                  "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
+                  "queries_per_s": q_rate, "equals_inprocess_cluster": True}
+
+    # --- S-ANN at the SIFT shape, n_max 250 000 a worker, K = 4 -----------
+    scfg = dataclasses.replace(cluster_run["rcfg"], n_max=sann_nmax)
+    inproc = cluster.ClusterRetrievalService(
+        scfg, num_workers=K, merge_every=RPC_MERGE_EVERY, device=device)
+    in_secs = _cluster_feed(inproc, shost, device)
+    want_state = inproc.merged_state()
+    want_cr, want_topk = inproc.query(qs), inproc.query_topk(qs)
+    inproc.close()
+    del inproc
+    with _rpc_open(lambda: rpc.RPCClusterRetrievalService(
+            scfg, num_workers=K, merge_every=RPC_MERGE_EVERY, rpc=rc,
+            device=device)) as (cl, start_s):
+        ops.reset_launches()
+        secs = _cluster_feed(cl, shost, device)
+        pull_ms, fold_ms = _timed_rpc_merge(cl, device)
+        got_state = cl.merged_state()
+        got_cr, got_topk = cl.query(qs), cl.query_topk(qs)
+        cr_rate = _timed_queries(cl.query, qs, device)
+        topk_rate = _timed_queries(cl.query_topk, qs, device)
+        _add_launches(coord)
+        _worker_launches(cl, in_workers, ("sann_table_scatter",), device)
+        _same_state(f"rpc retrieval K={K}", inprocess=want_state,
+                    rpc=got_state)
+        _same_sann_answers(f"rpc retrieval K={K}", got_cr, want_cr,
+                           got_topk, want_topk)
+        snap_mb = _state_bytes(cl._template.state) / 1e6
+        n_stored = int(got_state.n_stored)
+    del want_state, got_state
+    out["retrieval"] = {"K": K, "n_max": sann_nmax, "points": shost.shape[0],
+                        "start_s": start_s, "ingest_s": secs,
+                        "points_per_s": shost.shape[0] / secs,
+                        "inprocess_points_per_s": shost.shape[0] / in_secs,
+                        "snapshot_mb_per_worker": snap_mb,
+                        "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
+                        "n_stored": n_stored, "cr_queries_per_s": cr_rate,
+                        "topk_queries_per_s": topk_rate,
+                        "equals_inprocess_cluster": True}
+
+    out["frame_cap"] = rpc_frame_cap(
+        dataclasses.replace(cluster_run["rcfg"], n_max=cap_nmax), shost, rc,
+        device)
+
+    # --- durability and failover (RACE, K = 2) ----------------------------
+    part = khost[:cluster_run["n_durable"]]
+    half = part.shape[0] // 2
+    single = race_service.RACEService(ccfg, device=device)
+    _cluster_feed(single, part, device)
+    fo = cluster.FailoverConfig(max_retries=2, backoff_s=0.01)
+    with tempfile.TemporaryDirectory() as tmp:
+        dcfg = dataclasses.replace(ccfg, snapshot_dir=f"{tmp}/durable",
+                                   snapshot_every=SERVICE_SNAPSHOT_EVERY // 4)
+        plan = faults.FaultPlan([faults.FaultSpec(
+            site="worker_1/net.send", mode="drop", hit=2)])
+        with _rpc_open(lambda: rpc.RPCClusterRACEService(
+                dcfg, num_workers=2, failover=fo, rpc=rc,
+                device=device)) as (cl, start_s):
+            ops.reset_launches()
+            with faults.installed(plan):
+                t_dur = _cluster_feed(cl, part, device)
+            _add_launches(coord)
+            _worker_launches(cl, in_workers, ("srp_hash", "race_hist"),
+                             device)
+            h = cl.health()
+            if not plan.fired or h["counters"]["retries"] < 1 \
+                    or h["counters"]["recoveries"]:
+                fail(f"rpc race: the net.send drop was not retried in place "
+                     f"({h['counters']})")
+            want = cl.merged_state()
+        with _rpc_open(lambda: rpc.RPCClusterRACEService(
+                dcfg, num_workers=2, rpc=rc, device=device)) as (cl, _):
+            t0 = time.perf_counter()
+            replayed = cl.recover()
+            t_rec = time.perf_counter() - t0
+            _same_state("rpc race durable", live=want,
+                        recovered=cl.merged_state(), single=single.state)
+        out["durable"] = {"K": 2, "points": part.shape[0], "start_s": start_s,
+                          "points_per_s_durable": part.shape[0] / t_dur,
+                          "send_drops_retried": h["counters"]["retries"],
+                          "recovered_records": replayed, "recovery_s": t_rec}
+
+        for name, respawn in (("respawn", True), ("salvage", False)):
+            kcfg2 = dataclasses.replace(
+                ccfg, snapshot_dir=f"{tmp}/{name}",
+                snapshot_every=(SERVICE_SNAPSHOT_EVERY // 4 if respawn
+                                else 10**6))
+            fo2 = fo if respawn else cluster.FailoverConfig(
+                on_degraded="partial", max_retries=1, backoff_s=0.001)
+            with _rpc_open(lambda: rpc.RPCClusterRACEService(
+                    kcfg2, num_workers=2, failover=fo2, device=device,
+                    rpc=dataclasses.replace(rc, respawn=respawn))) as (cl, _):
+                ops.reset_launches()
+                _cluster_feed(cl, part[:half], device)
+                victim = cl._procs[1]
+                victim.kill()                   # SIGKILL, no goodbye
+                victim.join(10.0)
+                t0 = time.perf_counter()
+                _cluster_feed(cl, part[half:], device)
+                t_fail = time.perf_counter() - t0
+                _add_launches(coord)
+                _worker_launches(cl, in_workers, ("srp_hash", "race_hist"),
+                                 device)
+                h = cl.health()
+                if respawn and (h["counters"]["recoveries"] < 1
+                                or h["dead_workers"]
+                                or cl._procs[1].pid == victim.pid):
+                    fail(f"rpc race: worker 1 was not respawned ({h})")
+                if not respawn and (h["dead_workers"] != [1]
+                                    or h["salvage_complete"] != [1]):
+                    fail(f"rpc race: worker 1 was not salvaged ({h})")
+                _same_state(f"rpc race after worker 1's SIGKILL ({name})",
+                            unkilled=want, single=single.state,
+                            merged=cl.merged_state())
+            out[name] = {"K": 2, "points": part.shape[0],
+                         "killed_after_points": half,
+                         "second_half_s": t_fail,
+                         "recoveries": h["counters"]["recoveries"],
+                         "dead_workers": h["dead_workers"],
+                         "salvaged_rows": h["counters"]["salvaged_rows"]}
+    single.close()
+    launches = {k: coord[k] + in_workers[k] for k in coord}
+    emit({**out, "coordinator_launches": coord,
+          "worker_launches": in_workers})
     return {"launches": launches}
 
 
@@ -3288,8 +3634,10 @@ def main(argv=None) -> int:
     services_run = phase_services(args.seed, sann_run, kde_run, device)
     fleet_run = phase_fleet(args.seed, sann_run, kde_run, device)
     cluster_run = phase_cluster(args.seed, sann_run, kde_run, device)
+    rpc_run = phase_rpc_cluster(cluster_run, device)
     fleet_cluster = {k: fleet_run["launches"][k] + cluster_run["launches"][k]
                      for k in launches}
+    del cluster_run
     phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device)
     services_run["retrieval"].close()
     summary = []
@@ -3313,6 +3661,7 @@ def main(argv=None) -> int:
             "replaces": REPLACES[row["name"]], "launches": launches[row["name"]],
             "services_launches": services_run["launches"].get(row["name"], 0),
             "fleet_cluster_launches": fleet_cluster[row["name"]],
+            "rpc_cluster_launches": rpc_run["launches"][row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

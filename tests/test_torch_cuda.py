@@ -803,3 +803,36 @@ def test_service_recovery_on_the_card(dev, tmp_path, kind):
                                getattr(cpu.state, f)), f
         rec.close()
     cpu.close()
+
+
+def test_rpc_cluster_spawned_workers_on_the_card(dev):
+    """Two spawned RACE workers, each its own CUDA process on the card: the
+    merged state and answers equal the in-process cluster's on the card,
+    each worker reports launches of its commit kernels, and no worker
+    process outlives `close()`."""
+    import numpy as np
+    from repro_torch.net import cluster as rpc
+    from repro_torch.serve import cluster, race_service
+    cfg = race_service.RACEServiceConfig(**_SVC["race"])
+    params = _service("race", dev).params
+    data = _grid_rows(1000, 5)
+    qs = _grid_rows(24, 6) + 1 / 32
+    inproc = cluster.ClusterRACEService(cfg, num_workers=2, device=dev,
+                                        params=params)
+    inproc.ingest(data)
+    cl = rpc.RPCClusterRACEService(cfg, num_workers=2, device=dev,
+                                   params=params)
+    procs = list(cl._procs.values())
+    try:
+        cl.ingest(data)
+        for f in cl.merged_state()._fields:
+            assert torch.equal(getattr(cl.merged_state(), f),
+                               getattr(inproc.merged_state(), f)), f
+        np.testing.assert_array_equal(cl.query(qs), inproc.query(qs))
+        for w in cl.workers:
+            launches = w.stats()["launches"]
+            assert launches["race_hist"] > 0 and launches["srp_hash"] > 0
+    finally:
+        cl.close()
+        inproc.close()
+    assert not any(p.is_alive() for p in procs)

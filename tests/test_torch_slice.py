@@ -130,19 +130,20 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 def test_port_source_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent.parent / "chip_smoke.py"]
-    assert len(files) >= 51
+    assert len(files) >= 55
     packages = {f.parent.name for f in files}
     assert {"core", "kernels", "configs", "models", "serve", "persist",
-            "parallel", "checkpoint"} <= packages
+            "parallel", "checkpoint", "net"} <= packages
     names = {f"{f.parent.name}/{f.name}" for f in files}
     assert {"core/fleet.py", "serve/tenant_fleet.py", "serve/cluster.py",
-            "parallel/sketch_sharding.py"} <= names
+            "parallel/sketch_sharding.py", "net/protocol.py", "net/worker.py",
+            "net/cluster.py"} <= names
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
 
 
 def test_port_imports_without_jax_in_a_fresh_process():
-    code = ("import sys, repro_torch; "
+    code = ("import sys, repro_torch, repro_torch.net; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "assert not bad, bad")
