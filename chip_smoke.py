@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N]            # one card, every phase
+    python3 chip_smoke.py --cards 4             # the sharding phase on four
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``), then drives the main path through the entry points a
@@ -78,7 +79,19 @@ user calls, at full width:
   with a dropped ``net.send`` retried in place, stopped and recovered; a
   SIGKILLed worker respawned and recovered, and with respawn off salvaged.
   Each worker process must launch its commit kernels (its ``K_STATS``
-  reply), and no worker process may outlive ``close()``.
+  reply), and no worker process may outlive ``close()``;
+* **sketch sharding** (``parallel/sketch_sharding.py``) on a mesh of K = 4
+  shards, one card repeated (``--cards 4``: cards 0..3, after only the
+  phases it reads): RACE and SW-AKDE split by rows over the news stream
+  (p-stable at EH eps 0.1, SRP at eps 0.01), S-ANN by tables over the
+  SIFT-shape stream (the point store replicated) and merged from two
+  halves, each state equal to one device's bit for bit and each 2048-query
+  block to one device's answers; the three services on the mesh, durable,
+  fed 16 chunks, their snapshot files byte for byte the single-device
+  service's and each recovering the other's directory; fleets split by
+  tenant (RACE and SW-AKDE at T = 256, S-ANN at T = 64, 4 mixed chunks)
+  equal to the unsharded fleets.  Every commit kernel launches once a
+  shard a chunk, and every shard's leaves lie on their own device.
 
 Keep decisions come from a threefry key on each device.  Kernel launch
 counts are zeroed just before each path and read just after; the SW-AKDE
@@ -178,6 +191,20 @@ CLUSTER_KDE_WINDOW, CLUSTER_KDE_N, CLUSTER_DURABLE_N = 65_536, 61_440, 262_144
 # (each merge pulls every worker's snapshot over TCP), RACE every 8 commits
 RPC_SANN_NMAX, RPC_CAP_NMAX = 250_000, 1_000_000
 RPC_MERGE_EVERY, RPC_TIMEOUT_S = 10**9, 120.0
+
+# the sharding phase: K = 4 shards (one card repeated, or four cards); SRP
+# SW-AKDE at eps 0.01 (52 slots); S-ANN merged from two halves of 8 chunks;
+# answers also at query batches of 16 and 1024; the services fed 24 chunks
+# (the KDE window of 65 536 expires; the retrieval service at n_max 16 384,
+# 3565 slots, wraps its ring), snapshots every 8 operations; fleets split by
+# tenant fed 64 mixed chunks (the 5 heaviest SW-AKDE tenants expire; the
+# S-ANN fleet at n_max 4096 a tenant, 1351 slots, wraps the 3 heaviest)
+SHARD_K, SHARD_SRP_EPS, SHARD_MERGE_CHUNKS = 4, 0.01, 8
+SHARD_OTHER_BATCHES = (16, 1024)
+SHARD_SERVICE_ROWS, SHARD_SNAPSHOT_EVERY = 24 * CHUNK, 8
+SHARD_SERVICE_SANN_NMAX = 16_384
+SHARD_FLEET_CHUNKS, SHARD_FLEET_SANN_NMAX = 64, 4096
+SHARD_FLEET_T = {"race": 256, "swakde": 256, "sann": 64}
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -544,7 +571,10 @@ def phase_sann(seed, device, n=SANN_N, n_queries=SANN_QUERIES):
     del st_dev, st_cpu
     return dict(cfg=cfg, params=params, state=state, queries=queries,
                 data=data, gen=gen, key=key, launches=launches,
-                results=results, topk=topk, r=r, c=c)
+                results=results, topk=topk, r=r, c=c,
+                rates={"points_per_s": n / t_ingest,
+                       "queries_per_s": n_queries / t_query,
+                       "topk_queries_per_s": n_queries / t_topk})
 
 
 # --------------------------------------------------------------------------
@@ -661,8 +691,10 @@ def phase_kde(seed, device, n=KDE_N, n_queries=KDE_QUERIES, window=65_536):
           "bit_identical": not bad, "differing": bad})
     if bad:
         fail(f"SW-AKDE/RACE device/CPU state differs in {bad}")
-    return dict(cfg=cfg, params=params, state=sw, data=data, gen=gen,
-                queries=queries, launches=launches)
+    return dict(cfg=cfg, params=params, state=sw, race=rc, data=data,
+                gen=gen, queries=queries, launches=launches,
+                rates={"swakde_points_per_s": n / t_sw,
+                       "race_points_per_s": n / t_rc})
 
 
 
@@ -797,7 +829,8 @@ def phase_srp_kde(seed, kde_run, device, n=KDE_N, n_queries=KDE_QUERIES,
     if bad:
         fail(f"SRP SW-AKDE/RACE device/CPU state differs in {bad}")
     return dict(cfg=cfg, params=params, params_cpu=params_cpu, state=sw,
-                race=rc, data=data, queries=queries, launches=launches)
+                race=rc, data=data, queries=queries, launches=launches,
+                rates={"race_points_per_s": n / t_rc})
 
 
 # --------------------------------------------------------------------------
@@ -3459,6 +3492,502 @@ def phase_rpc_cluster(cluster_run, device, workers=CLUSTER_WORKERS,
 
 
 # --------------------------------------------------------------------------
+# phase 4e: sketch sharding (parallel/sketch_sharding.py) on a mesh
+# --------------------------------------------------------------------------
+
+def _timed(fn, devices):
+    """``fn()`` once to warm up, then once timed (every card synchronized);
+    returns (result, seconds)."""
+    import torch
+    fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return out, time.perf_counter() - t0
+
+
+def _same_ids_and_distances(name, got, want):
+    """Equal ids (and found flags, counts) and distances within the
+    scorer's tolerance; returns whether the distances are bit-identical."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    exact = True
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"sharding {name}: answer shapes differ")
+        if g.dtype.is_floating_point:
+            if not torch.allclose(g, w, rtol=RTOL, atol=ATOL, equal_nan=True):
+                fail(f"sharding {name}: distances beyond the tolerance")
+            exact &= torch.equal(g, w)
+        elif not torch.equal(g, w):
+            fail(f"sharding {name}: ids differ from one device's")
+    return exact
+
+
+def phase_sharding(seed, sann_run, kde_run, srp_run, device, mesh_devices):
+    """The sketches split across a mesh of K devices (one card repeated,
+    or K cards) against one device, at full width: RACE and SW-AKDE split
+    by rows (p-stable eps 0.1 and SRP eps 0.01, news shape), S-ANN by
+    tables (SIFT shape, the point store replicated), merged; the three
+    services on the mesh, durable; fleets split by tenant.  Every state
+    equals one device's bit for bit, every answer one device's, snapshots
+    byte for byte, and each commit kernel launches once a shard a chunk."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import fleet, lsh, prng, race, sann, swakde
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sketch_sharding as ss
+    from repro_torch.parallel.sharding import Mesh
+    from repro_torch.persist import snapshot
+    from repro_torch.serve import kde_service, race_service, retrieval
+
+    t_phase = time.perf_counter()
+    mesh = Mesh(mesh_devices)
+    ctx = ss.make_sketch_ctx(mesh)
+    K = mesh.size
+    cards = list(dict.fromkeys(mesh.devices))
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    launches = {k: 0 for k in ops.LAUNCHES}
+    out = {"phase": "sharding", "shards": K,
+           "mesh": [str(d) for d in mesh.devices]}
+
+    def own_cards(name, st):
+        for i, (sh, d) in enumerate(zip(st, mesh.devices)):
+            bad = [f for f, x in zip(sh._fields, sh)
+                   if isinstance(x, torch.Tensor) and x.device != d]
+            if bad:
+                fail(f"sharding {name}: shard {i}'s {bad} not on {d}")
+
+    def same(name, a, b):
+        bad = {f: int((getattr(a, f) != getattr(b, f).to(
+                   getattr(a, f).device)).sum())
+               for f in a._fields if not torch.equal(
+                   getattr(a, f), getattr(b, f).to(getattr(a, f).device))}
+        if bad:
+            fail(f"sharding {name}: state differs from one device's in "
+                 f"{bad} elements")
+
+    def stream(name, st, chunks, step, kernels):
+        """``step(st, i, chunk)`` over the chunks, timed; each kernel of
+        ``kernels`` must launch once a shard a chunk."""
+        ops.reset_launches()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for i, x in enumerate(chunks):
+            st = step(st, i, x)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        secs = time.perf_counter() - t0
+        got = {k: ops.LAUNCHES[k] for k in kernels}
+        _add_launches(launches)
+        if any(v != K * len(chunks) for v in got.values()):
+            fail(f"sharding {name}: {got} launches over {len(chunks)} chunks; "
+                 f"expected one a shard a chunk")
+        own_cards(name, st)
+        return st, secs, got
+
+    def one_card(fn):
+        ops.reset_launches()
+        res = _timed(fn, [device])
+        _add_launches(launches)
+        return res
+
+    def other_batches(name, sharded, single, queries, exact=True):
+        """The answers at SHARD_OTHER_BATCHES queries too: a GEMM of
+        another shape may sum in another order, and a code would move."""
+        ops.reset_launches()
+        for b in SHARD_OTHER_BATCHES:
+            a4, a1 = sharded(queries[:b]), single(queries[:b])
+            if not exact:
+                _same_ids_and_distances(f"{name} at {b} queries", a4, a1)
+            elif not torch.equal(a4.cpu(), a1.cpu()):
+                fail(f"sharding {name}: estimates at {b} queries differ")
+        _add_launches(launches)
+        return list(SHARD_OTHER_BATCHES)
+
+    # --- RACE and SW-AKDE at the news shape, split by rows --------------
+    data = kde_run["data"]
+    n = data.shape[0]
+    chunks = [data[i:i + CHUNK] for i in range(0, n, CHUNK)]
+    qs = kde_run["queries"][:QUERY_BLOCK]
+    for family, run, eps in (("pstable", kde_run, 0.1),
+                             ("srp", srp_run, SHARD_SRP_EPS)):
+        p1 = run["params"]
+        kernels = ("srp_hash",) if family == "srp" else ()
+        st, p = ss.shard_race(race.race_init(96, 96, device), p1, ctx)
+        st, secs, got = stream(
+            f"race {family}", st, chunks,
+            lambda s, i, x: ss.sharded_race_commit_chunk(
+                s, ss.sharded_race_prepare_chunk(p, x, 96, ctx), ctx),
+            kernels + ("race_hist",))
+        same(f"race {family}", ss.gather_state(st, ctx), run["race"])
+        q4, tq4 = _timed(lambda: ss.sharded_race_query_batch(st, p, qs, ctx),
+                         cards)
+        q1, tq1 = one_card(lambda: race.race_query_batch(run["race"], p1, qs))
+        if not torch.equal(q4.cpu(), q1.cpu()):
+            fail(f"sharding race {family}: estimates differ")
+        batches = other_batches(
+            f"race {family}",
+            lambda q: ss.sharded_race_query_batch(st, p, q, ctx),
+            lambda q: race.race_query_batch(run["race"], p1, q), qs)
+        out[f"race_{family}"] = {
+            "points": n, "rows_a_shard": 96 // K, "launches": got,
+            "k1_points_per_s": run["rates"]["race_points_per_s"],
+            "k_points_per_s": n / secs, "k1_queries_per_s": QUERY_BLOCK / tq1,
+            "k_queries_per_s": QUERY_BLOCK / tq4, "state_bit_identical": True,
+            "queries_bit_identical": QUERY_BLOCK,
+            "other_batches_bit_identical": batches}
+        del st
+
+        cfg = swakde.SWAKDEConfig(L=96, W=96, window=65_536, eh_eps=eps)
+        if family == "pstable":
+            one, k1_rate = run["state"], run["rates"]["swakde_points_per_s"]
+        else:
+            ops.reset_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            one = swakde.swakde_init(cfg, device)
+            for x in chunks:
+                one = swakde.swakde_update_chunk(one, p1, x, cfg)
+            sync(device)
+            k1_rate = n / (time.perf_counter() - t0)
+            _add_launches(launches)
+        st, p = ss.shard_swakde(swakde.swakde_init(cfg, device), p1, ctx)
+        st, secs, got = stream(
+            f"swakde {family}", st, chunks,
+            lambda s, i, x: ss.sharded_swakde_commit_chunk(
+                s, ss.sharded_swakde_prepare_chunk(p, x, cfg, ctx), cfg, ctx),
+            kernels + ("swakde_segment_pass",))
+        same(f"swakde {family}", ss.gather_state(st, ctx), one)
+        q1, tq1 = one_card(lambda: swakde.swakde_query_batch(one, p1, qs, cfg))
+        q4, tq4 = _timed(lambda: ss.sharded_swakde_query_batch(st, p, qs, cfg,
+                                                               ctx), cards)
+        grid = ss.sharded_swakde_grid_estimates(st, cfg, ctx)
+        qg, tqg = _timed(lambda: ss.sharded_swakde_query_from_grid(
+            grid, p, qs, cfg, ctx), cards)
+        if not (torch.equal(q4.cpu(), q1.cpu())
+                and torch.equal(qg.cpu(), q1.cpu())):
+            fail(f"sharding swakde {family}: estimates differ")
+        batches = other_batches(
+            f"swakde {family}",
+            lambda q: torch.stack([
+                ss.sharded_swakde_query_batch(st, p, q, cfg, ctx),
+                ss.sharded_swakde_query_from_grid(grid, p, q, cfg, ctx)]),
+            lambda q: swakde.swakde_query_batch(one, p1, q, cfg).expand(2, -1),
+            qs)
+        out[f"swakde_{family}"] = {
+            "points": n, "eh_eps": eps, "eh_slots": cfg.eh_config().slots,
+            "rows_a_shard": 96 // K, "launches": got,
+            "k1_points_per_s": k1_rate, "k_points_per_s": n / secs,
+            "k1_queries_per_s": QUERY_BLOCK / tq1,
+            "k_queries_per_s": QUERY_BLOCK / tq4,
+            "k_grid_queries_per_s": QUERY_BLOCK / tqg,
+            "state_bit_identical": True,
+            "queries_bit_identical": 2 * QUERY_BLOCK,
+            "other_batches_bit_identical": batches}
+        del st, grid, one
+
+    # --- S-ANN at the SIFT shape, split by tables ------------------------
+    scfg, sp1, sdata = sann_run["cfg"], sann_run["params"], sann_run["data"]
+    schunks = [sdata[i:i + CHUNK] for i in range(0, sdata.shape[0], CHUNK)]
+    ckeys = prng.split(sann_run["key"], len(schunks))
+    empty, sp = ss.shard_sann(sann.sann_empty_state(scfg, device), sp1, ctx)
+    st, secs, got = stream(
+        "sann", empty, schunks,
+        lambda s, i, x: ss.sharded_sann_commit_chunk(
+            s, ss.sharded_sann_prepare_chunk(sp, x, ckeys[i], scfg, ctx),
+            scfg, ctx),
+        ("sann_table_scatter",))
+    one = sann_run["state"]
+    same("sann", ss.gather_state(st, ctx), one)
+    sq = sann_run["queries"][:QUERY_BLOCK]
+    cr1, tcr1 = one_card(lambda: sann.sann_query_batch(one, sp1, sq, scfg))
+    tk1, ttk1 = one_card(lambda: sann.sann_query_topk_batch(one, sp1, sq, scfg,
+                                                            TOPK))
+    ops.reset_launches()
+    cr4, tcr4 = _timed(lambda: ss.sharded_sann_query_batch(st, sp, sq, scfg,
+                                                           ctx), cards)
+    tk4, ttk4 = _timed(lambda: ss.sharded_sann_query_topk_batch(
+        st, sp, sq, scfg, ctx, TOPK), cards)
+    _add_launches(launches)
+    exact = (_same_ids_and_distances("sann (c, r)", cr4, cr1)
+             & _same_ids_and_distances("sann top-50", tk4, tk1))
+    batches = other_batches(
+        "sann", lambda q: (*ss.sharded_sann_query_batch(st, sp, q, scfg, ctx),
+                           *ss.sharded_sann_query_topk_batch(st, sp, q, scfg,
+                                                             ctx, TOPK)),
+        lambda q: (*sann.sann_query_batch(one, sp1, q, scfg),
+                   *sann.sann_query_topk_batch(one, sp1, q, scfg, TOPK)),
+        sq, exact=False)
+    # the merge of two halves, against sann_merge
+    mkeys = prng.split(prng.PRNGKey(seed + 5, device), 2 * SHARD_MERGE_CHUNKS)
+    halves1, halves4 = [], []
+    for h in range(2):
+        part = range(h * SHARD_MERGE_CHUNKS, (h + 1) * SHARD_MERGE_CHUNKS)
+        a1, a4 = sann.sann_empty_state(scfg, device), empty
+        for j in part:
+            a1 = sann.sann_insert_batch(a1, sp1, schunks[j], mkeys[j], scfg)
+            a4 = ss.sharded_sann_insert_batch(a4, sp, schunks[j], mkeys[j],
+                                              scfg, ctx)
+        halves1.append(a1)
+        halves4.append(a4)
+    m1, tm1 = one_card(lambda: sann.sann_merge(*halves1, sp1, scfg))
+    ops.reset_launches()
+    m4, tm4 = _timed(lambda: ss.sharded_sann_merge(*halves4, sp, scfg, ctx),
+                     cards)
+    merge_launches = ops.LAUNCHES["sann_table_scatter"]
+    _add_launches(launches)
+    own_cards("sann merge", m4)
+    same("sann merge", ss.gather_state(m4, ctx), m1)
+    out["sann"] = {
+        "points": int(sdata.shape[0]), "tables_a_shard": scfg.L // K,
+        "table_mb_a_shard": st[0].tables.numel() * 4 / 1e6,
+        "point_store_mb_a_shard": st[0].points.numel() * 4 / 1e6,
+        "launches": got, "k1_points_per_s": sann_run["rates"]["points_per_s"],
+        "k_points_per_s": sdata.shape[0] / secs,
+        "k1_queries_per_s": QUERY_BLOCK / tcr1,
+        "k_queries_per_s": QUERY_BLOCK / tcr4,
+        "k1_topk_queries_per_s": QUERY_BLOCK / ttk1,
+        "k_topk_queries_per_s": QUERY_BLOCK / ttk4,
+        "state_bit_identical": True, "ids_equal": 2 * QUERY_BLOCK,
+        "distances_bit_identical": exact, "other_batches_ids_equal": batches,
+        "merge_points": 2 * SHARD_MERGE_CHUNKS * CHUNK, "k1_merge_ms": tm1 * 1e3,
+        "k_merge_ms": tm4 * 1e3, "merge_launches": merge_launches,
+        "merge_bit_identical": True}
+    del st, m4, m1, halves1, halves4, empty
+
+    # --- the three services on the mesh, durable -------------------------
+    host_s = sdata[:SHARD_SERVICE_ROWS].cpu().numpy()
+    host_k = data[:SHARD_SERVICE_ROWS].cpu().numpy()
+    common = dict(seed=seed, ingest_chunk=CHUNK, query_block=QUERY_BLOCK,
+                  snapshot_every=SHARD_SNAPSHOT_EVERY,
+                  max_pending=SERVICE_CALL_ROWS)
+    specs = {
+        "retrieval": (retrieval.RetrievalService, retrieval.RetrievalConfig(
+            dim=SANN_DIM, n_max=SHARD_SERVICE_SANN_NMAX, eta=0.3,
+            r=sann_run["r"],
+            c=sann_run["c"], w=2.0 * sann_run["r"], L=12, k=6, bucket_cap=32,
+            topk=TOPK, **common), host_s, sann_run["queries"],
+            lambda s: s.delete(host_s[10]), "sann_table_scatter"),
+        "kde_srp": (kde_service.KDEService, kde_service.KDEServiceConfig(
+            dim=KDE_DIM, L=96, W=96, window=65_536, eh_eps=0.1,
+            hash_family="srp", k=2, **common), host_k, qs,
+            lambda s: s.advance_clock(SHARD_SERVICE_ROWS + SERVICE_CLOCK_STEPS),
+            "swakde_segment_pass"),
+        "race": (race_service.RACEService, race_service.RACEServiceConfig(
+            dim=KDE_DIM, L=96, W=96, hash_family="pstable", k=2, w=4.0,
+            **common), host_k, qs,
+            lambda s: s.delete(host_k[:SERVICE_DELETE_ROWS]), "race_hist"),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (cls, cfg, host, squeries, mutate, kernel) in specs.items():
+            def make(sharded, d):
+                return cls(dataclasses.replace(
+                    cfg, snapshot_dir=str(d), mesh=mesh if sharded else None),
+                    device=device)
+
+            line, svcs, dirs = {}, {}, {}
+            for sharded in (False, True):
+                tag = f"k{K}" if sharded else "k1"
+                dirs[tag] = Path(tmp) / name / tag
+                svc = make(sharded, dirs[tag])
+                ops.reset_launches()
+                secs, _ = _feed(svc, host, device)
+                if mutate is not None:
+                    mutate(svc)
+                svc.flush()
+                n_commit = ops.LAUNCHES[kernel]
+                _add_launches(launches)
+                # (the RACE delete is one more prepare and commit)
+                chunks_in = -(-host.shape[0] // CHUNK) + (name == "race")
+                if sharded and n_commit != K * chunks_in:
+                    fail(f"sharding service {name}: {n_commit} {kernel} "
+                         f"launches for {chunks_in} chunks on {K} shards")
+                hq = squeries[:QUERY_BLOCK].cpu().numpy()
+                kind = svc._default_query_kind
+                ans, tq = _timed(lambda: svc._serve_query(kind, hq), cards)
+                line[f"{tag}_points_per_s_durable"] = host.shape[0] / secs
+                line[f"{tag}_queries_per_s"] = QUERY_BLOCK / tq
+                line[f"{tag}_{kernel}_launches"] = n_commit
+                svcs[tag] = (svc, ans)
+            (s1, a1), (s4, a4) = svcs["k1"], svcs[f"k{K}"]
+            own_cards(f"service {name}", s4.state)
+            same(f"service {name}", s4.gather_state(s4.state), s1.state)
+            if name == "retrieval":
+                line["ring_wrapped"] = bool(s1.state.write_ptr
+                                            != s1.state.n_stored)
+            elif name == "kde_srp":
+                line["window_expired"] = bool(s1.steps > cfg.window)
+            if False in (line.get("ring_wrapped"), line.get("window_expired")):
+                fail(f"sharding service {name}: the stream did not wrap the "
+                     f"ring or expire the window")
+            line["answers_bit_identical"] = _same_ids_and_distances(
+                f"service {name}", tuple(map(torch.from_numpy, a4)
+                                         if isinstance(a4, tuple)
+                                         else (torch.from_numpy(a4),)),
+                tuple(map(torch.from_numpy, a1) if isinstance(a1, tuple)
+                      else (torch.from_numpy(a1),)))
+            ref_state = s1.state
+            s1.close()
+            s4.close()
+            seqs = {t: snapshot.latest_seq(d) for t, d in dirs.items()}
+            if len(set(seqs.values())) != 1:
+                fail(f"sharding service {name}: newest snapshots {seqs}")
+            seq = seqs["k1"]
+            files = sorted(p.name for p in
+                           snapshot.snapshot_path(dirs["k1"], seq).iterdir())
+            for f in files:
+                a = (snapshot.snapshot_path(dirs["k1"], seq) / f).read_bytes()
+                b = (snapshot.snapshot_path(dirs[f"k{K}"], seq) / f
+                     ).read_bytes()
+                if a != b:
+                    fail(f"sharding service {name}: snapshot file {f} differs")
+            line["snapshot_seq"] = seq
+            line["snapshot_bytes"] = _dir_bytes(
+                snapshot.snapshot_path(dirs["k1"], seq))
+            line["snapshot_files_byte_identical"] = files
+            for src, sharded in (("k1", True), (f"k{K}", False)):
+                rec = make(sharded, dirs[src])
+                t0 = time.perf_counter()
+                replayed = rec.recover()
+                sync(device)
+                line[f"recover_{src}_dir_on_{'k' + str(K) if sharded else 'k1'}_s"] = (
+                    time.perf_counter() - t0)
+                if replayed < 1:
+                    fail(f"sharding service {name}: nothing replayed")
+                same(f"service {name} recovered from {src}",
+                     rec.gather_state(rec.state), ref_state)
+                rec.close()
+            line["recovered_both_ways"] = True
+            out[f"service_{name}"] = {"points": int(host.shape[0]), **line}
+            del ref_state
+
+    # --- fleets split by tenant ------------------------------------------
+    nf = SHARD_FLEET_CHUNKS * CHUNK
+    gen = torch.Generator(device=device).manual_seed(seed + 60)
+    acfg = sann.SANNConfig(dim=SANN_DIM, n_max=SHARD_FLEET_SANN_NMAX, eta=0.3,
+                           r=sann_run["r"], c=sann_run["c"],
+                           w=2.0 * sann_run["r"], L=12, k=6,
+                           bucket_cap=32).resolved()
+    fleets = {
+        "race": (SHARD_FLEET_T["race"], srp_run["params"], data,
+                 race.race_init(96, 96, device), ("srp_hash", "race_hist")),
+        "swakde": (SHARD_FLEET_T["swakde"], kde_run["params"], data,
+                   swakde.swakde_init(swakde.SWAKDEConfig(
+                       L=96, W=96, window=FLEET_SW_WINDOW, eh_eps=0.1), device),
+                   ("swakde_segment_pass",)),
+        "sann": (SHARD_FLEET_T["sann"], lsh.init_pstable(
+            gen, SANN_DIM, acfg.L, acfg.k, acfg.w, acfg.n_buckets,
+            device=device), sdata, sann.sann_empty_state(acfg, device),
+            ("sann_table_scatter",)),
+    }
+    fcfg = swakde.SWAKDEConfig(L=96, W=96, window=FLEET_SW_WINDOW, eh_eps=0.1)
+    for kind, (T, p1, fdata, empty1, kernels) in fleets.items():
+        tids_h = zipf_tids(nf, T, seed + T)
+        tids = torch.from_numpy(tids_h).to(device)
+        caps = [int(np.bincount(tids_h[i:i + CHUNK], minlength=T).max())
+                for i in range(0, nf, CHUNK)]
+        fchunks = [fdata[i:i + CHUNK] for i in range(0, nf, CHUNK)]
+
+        def keys(i, T=T):
+            return fleet.sann_fleet_keys(prng.fold_in(
+                prng.PRNGKey(seed + 61, device), i),
+                torch.arange(T, device=device))
+
+        def step(st, i, x, p, sharded, kind=kind):
+            t = tids[i * CHUNK:(i + 1) * CHUNK]
+            if kind == "race":
+                return (ss.sharded_race_fleet_ingest(st, p, x, t, ctx)
+                        if sharded else fleet.race_fleet_ingest(st, p, x, t))
+            if kind == "swakde":
+                return (ss.sharded_swakde_fleet_ingest(st, p, x, t, fcfg,
+                                                       caps[i], ctx)
+                        if sharded else fleet.swakde_fleet_ingest(
+                            st, p, x, t, fcfg, caps[i]))
+            return (ss.sharded_sann_fleet_ingest(st, p, x, t, keys(i), acfg,
+                                                 caps[i], ctx)
+                    if sharded else fleet.sann_fleet_ingest(
+                        st, p, x, t, keys(i), acfg, caps[i]))
+
+        one = fleet.fleet_broadcast(empty1, T)
+        st, p = ss.shard_fleet(one, p1, ctx)
+        st, secs, got = stream(f"fleet {kind}", st, fchunks,
+                               lambda s, i, x: step(s, i, x, p, True),
+                               kernels)
+        ops.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        for i, x in enumerate(fchunks):
+            one = step(one, i, x, p1, False)
+        sync(device)
+        secs1 = time.perf_counter() - t0
+        _add_launches(launches)
+        same(f"fleet {kind}", ss.gather_fleet(st, ctx), one)
+        edge = {}
+        if kind == "swakde":
+            edge["tenants_expired"] = int((one.t > fcfg.window).sum())
+        elif kind == "sann":
+            edge["tenants_wrapped"] = int((one.write_ptr != one.n_stored)
+                                          .sum())
+        if 0 in edge.values():
+            fail(f"sharding fleet {kind}: no tenant reached the edge {edge}")
+        fq = (sann_run["queries"] if kind == "sann" else qs)[:QUERY_BLOCK]
+        qt = torch.from_numpy(zipf_tids(QUERY_BLOCK, T, seed + T + 1)).to(
+            device)
+        if kind == "race":
+            pairs = [(lambda: fleet.race_fleet_query(one, p1, fq, qt),
+                      lambda: ss.sharded_race_fleet_query(st, p, fq, qt, ctx))]
+        elif kind == "swakde":
+            pairs = [(lambda: fleet.swakde_fleet_query(one, p1, fq, qt, fcfg),
+                      lambda: ss.sharded_swakde_fleet_query(st, p, fq, qt,
+                                                            fcfg, ctx))]
+        else:
+            pairs = [(lambda: fleet.sann_fleet_query_topk(one, p1, fq, qt,
+                                                          acfg, TOPK),
+                      lambda: ss.sharded_sann_fleet_query_topk(
+                          st, p, fq, qt, acfg, ctx, TOPK)),
+                     (lambda: fleet.sann_fleet_query(one, p1, fq, qt, acfg),
+                      lambda: ss.sharded_sann_fleet_query(st, p, fq, qt, acfg,
+                                                          ctx))]
+        tq1 = tq4 = 0.0
+        for f1, f4 in pairs:
+            a1, t1 = one_card(f1)
+            ops.reset_launches()
+            a4, t4 = _timed(f4, cards)
+            _add_launches(launches)
+            _same_ids_and_distances(f"fleet {kind} queries", a4, a1)
+            tq1, tq4 = tq1 + t1, tq4 + t4
+        out[f"fleet_{kind}"] = {
+            "T": T, "tenants_a_shard": T // K, "points": nf,
+            "chunks": len(fchunks), **edge, "launches": got,
+            "k1_points_per_s": nf / secs1, "k_points_per_s": nf / secs,
+            "k1_queries_per_s": len(pairs) * QUERY_BLOCK / tq1,
+            "k_queries_per_s": len(pairs) * QUERY_BLOCK / tq4,
+            "device_bytes": _state_bytes(one), "state_bit_identical": True,
+            "queries_equal": len(pairs) * QUERY_BLOCK}
+        del st, one
+
+    out["peak_mb_by_card"] = {str(d): torch.cuda.max_memory_allocated(d) / 1e6
+                              for d in cards}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    for k in SERVICE_KERNELS:
+        if launches[k] <= 0:
+            fail(f"the sharding phase launched no {k}")
+    emit(out)
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # phase 5: where the time goes (torch.profiler over short main-path windows)
 # --------------------------------------------------------------------------
 
@@ -3583,6 +4112,10 @@ def phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cards", type=int, default=1,
+                    help="1 (default): every phase, the sharding phase on "
+                    "one card repeated; N > 1: only the sharding phase (and "
+                    "the phases it reads) on cards 0..N-1")
     args = ap.parse_args(argv)
 
     import torch
@@ -3598,11 +4131,23 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} but "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 2
 
     phase_device()
     sann_run = phase_sann(args.seed, device)
     kde_run = phase_kde(args.seed, device)
     srp_run = phase_srp_kde(args.seed, kde_run, device)
+    if args.cards > 1:
+        phase_sharding(args.seed, sann_run, kde_run, srp_run, device,
+                       tuple(torch.device("cuda", i)
+                             for i in range(args.cards)))
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     oracle_launches = phase_sann_oracles(sann_run, device)
     phase_kde_oracles(srp_run, device)
     phase_lm_cross_check(args.seed, device)
@@ -3631,6 +4176,9 @@ def main(argv=None) -> int:
             *check_sketch_decode_attn(serve_run, device)]
     for row in rows:
         emit({"phase": "kernel_check", **row})
+    sharding_run = phase_sharding(
+        args.seed, sann_run, kde_run, srp_run, device,
+        (torch.device("cuda", torch.cuda.current_device()),) * SHARD_K)
     services_run = phase_services(args.seed, sann_run, kde_run, device)
     fleet_run = phase_fleet(args.seed, sann_run, kde_run, device)
     cluster_run = phase_cluster(args.seed, sann_run, kde_run, device)
@@ -3662,6 +4210,7 @@ def main(argv=None) -> int:
             "services_launches": services_run["launches"].get(row["name"], 0),
             "fleet_cluster_launches": fleet_cluster[row["name"]],
             "rpc_cluster_launches": rpc_run["launches"][row["name"]],
+            "sharding_launches": sharding_run["launches"][row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

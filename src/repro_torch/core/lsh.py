@@ -23,7 +23,7 @@ Numerics (kept equal to the reference):
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,14 +42,21 @@ class SRPParams(NamedTuple):
 
 
 class PStableParams(NamedTuple):
-    """L independent concatenations of k p-stable (Euclidean) hashes."""
-    proj: torch.Tensor   # (d, L*k) float32 — N(0,1)
+    """L independent concatenations of k p-stable (Euclidean) hashes.
+
+    A row block of a sharded sketch (`parallel.sketch_sharding`) sets
+    ``row0``, its first row in the whole sketch, and holds the whole
+    sketch's ``proj``: it hashes with columns ``[row0*k, (row0+L)*k)`` of
+    the whole product, so its codes are the single-device codes whatever
+    order the GEMM sums a product of another width in."""
+    proj: torch.Tensor   # (d, L*k) float32 — N(0,1); a row block: the whole
     bias: torch.Tensor   # (L*k,) float32 — U[0, w)
     mix: torch.Tensor    # (L, k) int64 holding odd uint32 values
     w: float
     L: int
     k: int
     n_buckets: int
+    row0: Optional[int] = None
 
 
 def _draw_mix(generator: torch.Generator, L: int, k: int) -> torch.Tensor:
@@ -95,8 +102,18 @@ def srp_hash(params: SRPParams, x: torch.Tensor) -> torch.Tensor:
 
 
 def pstable_hash(params: PStableParams, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., d) → bucket ids (..., L) via floor((a.x+b)/w), k per row."""
-    y = (x @ params.proj + params.bias) * fp32_reciprocal(params.w)
+    """x: (..., d) → bucket ids (..., L) via floor((a.x+b)/w), k per row;
+    a row block (``row0`` set) takes its columns of the whole product."""
+    lo = 0 if params.row0 is None else params.row0 * params.k
+    hi = lo + params.L * params.k
+    width = params.proj.shape[-1]
+    if hi > width or (params.row0 is None and width != hi):
+        raise ValueError(f"p-stable proj has {width} columns; the rows "
+                         f"need columns [{lo}, {hi})")
+    y = x @ params.proj
+    if hi - lo != width:
+        y = y[..., lo:hi]
+    y = (y + params.bias) * fp32_reciprocal(params.w)
     h = torch.floor(y).to(torch.int32)
     h = h.reshape(*x.shape[:-1], params.L, params.k)
     return fold(h, params.mix, params.n_buckets)

@@ -13,6 +13,9 @@
 
 namespace repro_torch {
 
+// Host-side caches keyed by card (a process may launch on several).
+constexpr int kMaxDevices = 64;
+
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;

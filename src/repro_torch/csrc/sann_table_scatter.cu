@@ -161,14 +161,17 @@ __global__ void __launch_bounds__(kThreads) sann_table_scatter_tombstone1(
 }
 
 int n_sms() {
-  static int sms = 0;   // one card a process
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  return sms;
+  // per card: one process may launch on several
+  static int sms[repro_torch::kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < repro_torch::kMaxDevices;
+  if (cached && sms[dev] > 0) return sms[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = n > 0 ? n : 1;
+  if (cached) sms[dev] = n;
+  return n;
 }
 
 }  // namespace

@@ -625,8 +625,13 @@ cudaError_t launch_pipe(const void* q, int q_bf16, const void* k,
                         int n_split, float scale, float softcap,
                         float inv_softcap, cudaStream_t s) {
   constexpr int smem = stages_for(CPR) * 2 * kTile * CPR * 16;
-  static bool configured = false;   // once a process and instantiation
-  if (!configured) {
+  // once a card and instantiation: a function's attributes are per device
+  static bool configured[repro_torch::kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= repro_torch::kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         sketch_decode_attn_pipe<CPR, GM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -635,7 +640,7 @@ cudaError_t launch_pipe(const void* q, int q_bf16, const void* k,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   sketch_decode_attn_pipe<CPR, GM><<<dim3(B * Hkv, n_split), kThreads, smem, s>>>(
       q, q_bf16, static_cast<const __nv_bfloat16*>(k),

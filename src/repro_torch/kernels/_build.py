@@ -142,18 +142,35 @@ def lib() -> ctypes.CDLL:
 def launch(name: str, entry_name: str, *args) -> None:
     """Call C entry ``entry_name`` with ``args`` (tensors become device
     pointers, None a null pointer, floats stay floats, anything else
-    becomes an int) on the current stream, raise on a CUDA error, and count
-    one launch of kernel ``name`` (an entry that launches several kernels
-    counts once)."""
+    becomes an int) on the current stream of the card that holds the
+    tensors, raise on a CUDA error, and count one launch of kernel
+    ``name`` (an entry that launches several kernels counts once).
+    Tensors on different devices, or none on a card, raise."""
+    dev = None
+    conv = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if dev is None:
+                dev = a.device
+            elif a.device != dev:
+                raise ValueError(f"CUDA kernel {name}: tensors on {dev} and "
+                                 f"{a.device}; a launch takes one card")
+            conv.append(a.data_ptr())
+        else:
+            conv.append(a if isinstance(a, float) or a is None else int(a))
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"CUDA kernel {name}: no tensor on a card "
+                         f"(got {dev})")
     fn = _ENTRIES.get(entry_name)
     if fn is None:                      # resolved once a process
         fn = _ENTRIES[entry_name] = getattr(lib(), entry_name)
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
-            else a if isinstance(a, float) or a is None else int(a)
-            for a in args]
-    # the current stream's handle, without building a torch.cuda.Stream
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
-    err = fn(*conv, stream)
+    # that card's current stream, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*conv, stream)
+    else:
+        with torch.cuda.device(dev.index):
+            err = fn(*conv, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
@@ -166,14 +183,19 @@ def _shape_ok(got, want) -> bool:
         w is None or w == n for w, n in zip(want, got)))
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+          device: Optional[torch.device] = None) -> None:
     """Wrapper-side argument check: a contiguous CUDA tensor of ``dtype``
-    and ``shape`` (``None`` entries match any size)."""
+    and ``shape`` (``None`` entries match any size), on ``device`` when
+    one is given (a kernel's tensors lie on one card)."""
     if t.is_cuda and t.dtype == dtype and t.is_contiguous() and \
-            _shape_ok(t.shape, shape):
+            _shape_ok(t.shape, shape) and device in (None, t.device):
         return
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not _shape_ok(t.shape, shape):
@@ -181,11 +203,16 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def check_all(name: str, tensors: dict, dtype: torch.dtype, shape) -> None:
+def check_all(name: str, tensors: dict, dtype: torch.dtype, shape,
+              device: Optional[torch.device] = None) -> None:
     """`check` for several tensors of one ``dtype`` and ``shape`` in one
-    pass; on a failure, `check` names the tensor at fault."""
+    pass, all on one card (``device``, or the first tensor's); on a
+    failure, `check` names the tensor at fault."""
+    if device is None:
+        device = next(iter(tensors.values())).device
     if all(t.is_cuda and t.dtype == dtype and t.is_contiguous()
-           and _shape_ok(t.shape, shape) for t in tensors.values()):
+           and _shape_ok(t.shape, shape) and t.device == device
+           for t in tensors.values()):
         return
     for key, t in tensors.items():
-        check(f"{name} {key}", t, dtype, shape)
+        check(f"{name} {key}", t, dtype, shape, device)

@@ -35,8 +35,10 @@ def batch_score_topk(qs: torch.Tensor, cands: torch.Tensor, ok: torch.Tensor,
     ``0..k-1``.  Needs ``1 <= k <= min(M, 64)``."""
     B, M, d = cands.shape
     _build.check("batch_score_topk qs", qs, torch.float32, (B, d))
-    _build.check("batch_score_topk cands", cands, torch.float32, (B, M, d))
-    _build.check("batch_score_topk ok", ok, torch.bool, (B, M))
+    _build.check("batch_score_topk cands", cands, torch.float32, (B, M, d),
+                 device=qs.device)
+    _build.check("batch_score_topk ok", ok, torch.bool, (B, M),
+                 device=qs.device)
     _check_k("batch_score_topk", M, k)
     out_d = torch.empty((B, k), dtype=torch.float32, device=qs.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=qs.device)
@@ -57,9 +59,11 @@ def batch_score_topk_gather(qs: torch.Tensor, points: torch.Tensor,
     N, d = points.shape
     _build.check("batch_score_topk_gather qs", qs, torch.float32, (B, d))
     _build.check("batch_score_topk_gather points", points, torch.float32,
-                 (N, d))
-    _build.check("batch_score_topk_gather cand", cand, torch.int32, (B, M))
-    _build.check("batch_score_topk_gather ok", ok, torch.bool, (B, M))
+                 (N, d), device=qs.device)
+    _build.check("batch_score_topk_gather cand", cand, torch.int32, (B, M),
+                 device=qs.device)
+    _build.check("batch_score_topk_gather ok", ok, torch.bool, (B, M),
+                 device=qs.device)
     _check_k("batch_score_topk_gather", M, k)
     if N < 1:
         raise ValueError("batch_score_topk_gather: the point store is empty")

@@ -16,7 +16,8 @@ def cand_score(q: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     ``(M,) f32``, diff-based."""
     M, d = cands.shape
     _build.check("cand_score q", q, torch.float32, (d,))
-    _build.check("cand_score cands", cands, torch.float32, (M, d))
+    _build.check("cand_score cands", cands, torch.float32, (M, d),
+                 device=q.device)
     out = torch.empty((M,), dtype=torch.float32, device=cands.device)
     if M:
         _build.launch("cand_score", "cand_score_launch", q, cands, out, M, d)

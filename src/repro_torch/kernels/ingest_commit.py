@@ -72,11 +72,16 @@ def swakde_segment_pass(cell_ts, cell_num, done, sorted_ts, seg_first,
     C = sorted_ts.shape[1]
     i32 = torch.int32
     _build.check("swakde_segment_pass cell_ts", cell_ts, i32, (R, G, LV, S))
-    _build.check("swakde_segment_pass cell_num", cell_num, i32, (R, G, LV))
-    _build.check("swakde_segment_pass done", done, i32, (R, G))
-    _build.check("swakde_segment_pass sorted_ts", sorted_ts, i32, (R, C))
-    _build.check("swakde_segment_pass seg_first", seg_first, i32, (R, G))
-    _build.check("swakde_segment_pass seg_len", seg_len, i32, (R, G))
+    _build.check("swakde_segment_pass cell_num", cell_num, i32, (R, G, LV),
+                 device=cell_ts.device)
+    _build.check("swakde_segment_pass done", done, i32, (R, G),
+                 device=cell_ts.device)
+    _build.check("swakde_segment_pass sorted_ts", sorted_ts, i32, (R, C),
+                 device=cell_ts.device)
+    _build.check("swakde_segment_pass seg_first", seg_first, i32, (R, G),
+                 device=cell_ts.device)
+    _build.check("swakde_segment_pass seg_len", seg_len, i32, (R, G),
+                 device=cell_ts.device)
     if R * G == 0:
         return cell_ts.clone(), cell_num.clone(), done.clone()
     ts_out = torch.empty_like(cell_ts)
@@ -101,11 +106,13 @@ def swakde_segment_commit(ts, num, sorted_ts, seg_code, seg_first, seg_len,
     G = seg_code.shape[1]
     i32 = torch.int32
     _build.check("swakde_segment_commit ts", ts, i32, (L, W, LV, S))
-    _build.check("swakde_segment_commit num", num, i32, (L, W, LV))
-    _build.check("swakde_segment_commit sorted_ts", sorted_ts, i32, (L, C))
+    _build.check("swakde_segment_commit num", num, i32, (L, W, LV),
+                 device=ts.device)
+    _build.check("swakde_segment_commit sorted_ts", sorted_ts, i32, (L, C),
+                 device=ts.device)
     _build.check_all("swakde_segment_commit",
                      {"seg_code": seg_code, "seg_first": seg_first,
-                      "seg_len": seg_len}, i32, (L, G))
+                      "seg_len": seg_len}, i32, (L, G), device=ts.device)
     ts_out, num_out = ts.clone(), num.clone()
     if L * G:
         _build.launch("swakde_segment_pass", "swakde_segment_commit_launch",
@@ -119,10 +126,11 @@ def _check_entries(name, tables, table_ptr, s_l, s_c, rank, val, mask):
     L, NB, cap = tables.shape
     E = s_l.shape[0]
     _build.check(f"{name} tables", tables, torch.int32, (L, NB, cap))
-    _build.check(f"{name} table_ptr", table_ptr, torch.int32, (L, NB))
+    _build.check(f"{name} table_ptr", table_ptr, torch.int32, (L, NB),
+                 device=tables.device)
     _build.check_all(name, {"s_l": s_l, "s_c": s_c, "rank": rank, "val": val},
-                     torch.int32, (E,))
-    _build.check(f"{name} mask", mask, torch.bool, (E,))
+                     torch.int32, (E,), device=tables.device)
+    _build.check(f"{name} mask", mask, torch.bool, (E,), device=tables.device)
     return L, NB, cap, E
 
 
@@ -167,7 +175,7 @@ def sann_table_commit(tables, table_ptr, s_l, s_c, rank, val, mask,
     T, R = tenant_rows(tables, write_ptr, rows_per_tenant)
     _build.check_all("sann_table_commit", {"write_ptr": write_ptr.reshape(T),
                                            "n_kept": n_kept.reshape(T)},
-                     torch.int32, (T,))
+                     torch.int32, (T,), device=tables.device)
     if capacity < 1:
         raise ValueError(f"sann_table_commit: capacity {capacity} < 1")
     if tables.data_ptr() % 16:

@@ -67,9 +67,11 @@ def sketch_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sketch_decode_attn k: expected bf16 or fp32, got {k.dtype}")
     _build.check("sketch_decode_attn q", q, q.dtype, (B, Hkv, G, dh))
     _build.check_all("sketch_decode_attn", {"k": k, "v": v}, k.dtype,
-                     (B, S, Hkv, dh))
-    _build.check("sketch_decode_attn block_ids", block_ids, torch.int32, (B, nb_max))
-    _build.check("sketch_decode_attn n_live", n_live, torch.int32, (B,))
+                     (B, S, Hkv, dh), device=q.device)
+    _build.check("sketch_decode_attn block_ids", block_ids, torch.int32,
+                 (B, nb_max), device=q.device)
+    _build.check("sketch_decode_attn n_live", n_live, torch.int32, (B,),
+                 device=q.device)
     if not (1 <= G <= MAX_G and 1 <= dh <= MAX_DH):
         raise ValueError(f"sketch_decode_attn: need G <= {MAX_G} and dh <= "
                          f"{MAX_DH}, got G={G}, dh={dh}")

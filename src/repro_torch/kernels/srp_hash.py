@@ -22,8 +22,9 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor, mix: torch.Tensor,
     B, d = x.shape
     L, k = mix.shape
     _build.check("srp_hash x", x, torch.float32, (B, d))
-    _build.check("srp_hash proj", proj, torch.float32, (d, L * k))
-    _build.check("srp_hash mix", mix, torch.int64, (L, k))
+    _build.check("srp_hash proj", proj, torch.float32, (d, L * k),
+                 device=x.device)
+    _build.check("srp_hash mix", mix, torch.int64, (L, k), device=x.device)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"srp_hash: need 1 <= k <= {MAX_K}, got k={k}")
     if not 1 <= n_buckets < 2**31:

@@ -176,7 +176,7 @@ class WorkerServer:
             return {**eng.stats(), "launches": dict(_build.LAUNCHES)}, {}
         if kind == P.K_SNAPSHOT:
             state, version = eng.snapshot()
-            leaves = _leaves(state)
+            leaves = _leaves(eng.gather_state(state))
             return ({"version": int(version), "num_leaves": len(leaves)},
                     leaves)
         if kind == P.K_RECOVER:

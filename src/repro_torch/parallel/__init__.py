@@ -1,3 +1,3 @@
-"""Sketch sharding contexts (single device; the mesh bodies are not ported
-yet)."""
-from . import sketch_sharding  # noqa: F401
+"""Sketch sharding: meshes of devices (`sharding`) and the sharded sketch
+bodies (`sketch_sharding`)."""
+from . import sharding, sketch_sharding  # noqa: F401

@@ -193,6 +193,11 @@ class ClusterService(_BatchedQueryMixin):
         self._make_worker = make_worker
         self.workers: List[SketchEngine] = [make_worker(w)
                                             for w in range(num_workers)]
+        if any(getattr(e, "num_shards", 1) > 1
+               for e in (*self.workers, self._ref)):
+            raise ValueError("cluster workers hold single-device sketches: "
+                             "shard a single service with num_shards or "
+                             "mesh, not a cluster's workers")
         self._merge_every = max(1, int(merge_every))
         self._merge_fn = merge_states
         self._mlock = threading.Lock()

@@ -71,6 +71,7 @@ to uncoalesced ones.
 from __future__ import annotations
 
 import collections
+import contextlib
 import pathlib
 import threading
 import time
@@ -85,6 +86,8 @@ from .. import persist
 from ..checkpoint.checkpoint import (AsyncCheckpointer, tree_leaves, tree_map,
                                      tree_unflatten)
 from ..core.util import resolve_device
+from ..parallel import sketch_sharding as ss
+from ..parallel.sharding import NULL_CTX, ShardingCtx
 from ..persist import faults
 
 # Queue marker telling the ingest worker to exit (see SketchEngine.close).
@@ -121,11 +124,12 @@ def to_host(tree):
     return tree_unflatten(tree, out)
 
 
-def _record_stream(tree, stream) -> None:
-    """Mark every CUDA tensor of ``tree`` as in use on ``stream``."""
+def _record_stream(tree, streams: dict) -> None:
+    """Mark every CUDA tensor of ``tree`` as in use on the stream of its
+    own card (``streams``: device → stream)."""
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor) and t.is_cuda:
-            t.record_stream(stream)
+            t.record_stream(streams[t.device])
 
 
 def host_rows(x) -> np.ndarray:
@@ -508,7 +512,11 @@ class SketchEngine(_BatchedQueryMixin):
     ``prepare_depth`` chunks the prepare side may run ahead of the commit
     side, ``max_pending`` bounds queued-but-uncommitted rows (None =
     unbounded), ``durability`` enables the snapshot + WAL subsystem,
-    ``device`` places the state (default the card; raises without one).
+    ``device`` places the state (default the card; raises without one),
+    ``ctx`` a sketch sharding context whose mesh, when it has one, holds
+    the state instead (then a tuple of per-shard states: snapshots write
+    its `gather_state`, `recover` places what it loads with
+    `_place_state`).
 
     Query-side micro-batching (`_BatchedQueryMixin`): ``batch_queries``
     routes the sync query wrappers through the admission scheduler,
@@ -528,12 +536,21 @@ class SketchEngine(_BatchedQueryMixin):
                  max_batch: Optional[int] = None,
                  max_wait_us: float = 200.0,
                  fault_scope: str = "",
-                 device="cuda"):
+                 device="cuda",
+                 ctx: ShardingCtx = NULL_CTX):
+        # A sharded engine's state lies on its mesh, its chunks, queries
+        # and answers on the mesh's first device.
+        self._ctx = ctx
+        if ctx.mesh is not None:
+            device = ctx.mesh.devices[0]
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         if self._cuda and self._device.index is None:
             # the worker and prepare threads bind this exact card
             self._device = torch.device("cuda", torch.cuda.current_device())
+        # every card the state lies on, in mesh order, each once
+        self._devices = tuple(dict.fromkeys(
+            (self._device,) if ctx.mesh is None else ctx.mesh.devices))
         self._chunk = max(1, int(ingest_chunk))
         # Fault-injection site prefix (persist.faults; DESIGN §14).
         self._fault_scope = fault_scope or (
@@ -591,8 +608,9 @@ class SketchEngine(_BatchedQueryMixin):
             max_workers=self._prepare_depth,
             initializer=self._bind_thread)
             if self._pipelined else None)
-        self._prep_stream = (torch.cuda.Stream(self._device)
-                             if self._cuda and self._pipelined else None)
+        # one side stream a card for the prepares
+        self._prep_streams = ({d: torch.cuda.Stream(d) for d in self._devices}
+                              if self._cuda and self._pipelined else None)
 
     def _bind_thread(self) -> None:
         if self._cuda:
@@ -619,6 +637,17 @@ class SketchEngine(_BatchedQueryMixin):
         Subclasses that log mutations must override."""
         raise NotImplementedError(f"unknown WAL record kind {kind}")
 
+    def _place_state(self, state):
+        """Place a restored single-device snapshot onto the engine's mesh
+        (identity on one device)."""
+        return ss.shard_state(state, self._ctx)
+
+    def gather_state(self, state):
+        """The single-device form of a state this engine holds, on its
+        first device: what snapshots write and `recover` reads (the state
+        itself on one device)."""
+        return ss.gather_state(state, self._ctx)
+
     # --- device plumbing ---------------------------------------------------
 
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
@@ -630,43 +659,58 @@ class SketchEngine(_BatchedQueryMixin):
         return torch.from_numpy(rows).pin_memory().to(self._device,
                                                       non_blocking=True)
 
+    def _current_streams(self) -> dict:
+        return {d: torch.cuda.current_stream(d) for d in self._devices}
+
     def _ready_event(self):
-        """An event on the caller's stream after a chunk item was made."""
+        """An event on the engine card's current stream (where the chunk
+        was copied) after a chunk item was made."""
         if not self._cuda:
             return None
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(self._device))
         return ev
 
     def _prepare_ready(self, item: tuple, ready) -> tuple:
         """Launch a chunk's prepare → ``(prep, done)``: on the card on the
-        side stream (after ``ready``), with ``done`` an event after it."""
+        side streams, one a card of the mesh (after ``ready``), with
+        ``done`` one event a card after it."""
         if not self._cuda:
             return self._prepare(*item), None
-        stream = self._prep_stream or torch.cuda.current_stream(self._device)
-        with torch.cuda.stream(stream):
-            stream.wait_event(ready)
-            _record_stream(item, stream)
+        streams = self._prep_streams or self._current_streams()
+        with contextlib.ExitStack() as scope:
+            for stream in streams.values():
+                scope.enter_context(torch.cuda.stream(stream))
+                stream.wait_event(ready)
+            _record_stream(item, streams)
             prep = self._prepare(*item)
-            done = torch.cuda.Event()
-            done.record(stream)
+            done = {}
+            for dev, stream in streams.items():
+                done[dev] = torch.cuda.Event()
+                done[dev].record(stream)
         return prep, done
 
     def _wait_prepared(self, prepared: tuple):
-        """The commit stream waits (on the device) for a prepare."""
+        """Each card's commit stream waits (on the device) for its part of
+        a prepare."""
         prep, done = prepared
         if done is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(done)
-            _record_stream(prep, stream)
+            streams = self._current_streams()
+            for dev, stream in streams.items():
+                stream.wait_event(done[dev])
+            _record_stream(prep, streams)
         return prep
 
     def _pace(self) -> None:
-        """The one host wait per commit: until the device has finished it."""
+        """The one host wait per commit: until every card of the state has
+        finished it."""
         if self._cuda:
-            ev = torch.cuda.Event()
-            ev.record()
-            ev.synchronize()
+            evs = []
+            for stream in self._current_streams().values():
+                evs.append(torch.cuda.Event())
+                evs[-1].record(stream)
+            for ev in evs:
+                ev.synchronize()
 
     # --- ingest ------------------------------------------------------------
 
@@ -885,7 +929,8 @@ class SketchEngine(_BatchedQueryMixin):
             self._wal.compact(self._snap_inflight - 1)
             persist.snapshot.prune(root, keep=self._dur.keep_snapshots)
         self._snap_inflight = seq
-        persist.snapshot.async_save(self._ckpt, root, seq, st,
+        persist.snapshot.async_save(self._ckpt, root, seq,
+                                    self.gather_state(st),
                                     fsync=self._dur.fsync)
         self._wal.rotate()
         self._last_snap_seq = seq
@@ -947,10 +992,11 @@ class SketchEngine(_BatchedQueryMixin):
             root = self._dur.dir
             snap = persist.snapshot.latest_seq(root)
             if snap is not None:
-                st = persist.snapshot.load(root, snap, self.state,
+                st = persist.snapshot.load(root, snap,
+                                           self.gather_state(self.state),
                                            self._device)
                 with self._lock:
-                    self.state = st
+                    self.state = self._place_state(st)
                 self._seq = self._committed_seq = snap
                 self._version = snap
                 self._last_snap_seq = snap

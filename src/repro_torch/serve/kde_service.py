@@ -18,7 +18,10 @@ Runtime, durability and micro-batching: `serve.engine.SketchEngine`; the
 clock advance (`advance_clock`) is WAL-logged as ``KIND_CLOCK``.
 Parameters: drawn from a CPU ``torch.Generator`` seeded with ``cfg.seed``,
 or passed in with ``params=`` (the parity tests carry the reference's).
-Multi-device sharding is not ported (``num_shards > 1`` raises).
+Multi-device: ``num_shards > 1`` (or a ``mesh``) splits the L rows across
+the mesh's devices (`parallel.sketch_sharding`); the grid cache is then
+row-sharded too, and answers, snapshots and recovery stay bit-identical to
+the single-device service.
 """
 from __future__ import annotations
 
@@ -67,7 +70,9 @@ class KDEServiceConfig:
     batch_queries: bool = False
     max_batch: Optional[int] = None
     max_wait_us: float = 200.0
-    # Multi-device sharding: not ported (num_shards > 1 or a mesh raises).
+    # Multi-device sharding: num_shards > 1 splits the L rows across that
+    # many devices of the service's type (L must divide evenly); ``mesh``
+    # overrides with a prebuilt `parallel.sharding.Mesh`.
     num_shards: int = 0
     mesh: Optional[object] = None
     # Admission control: bound on queued-but-uncommitted rows (None = off).
@@ -91,7 +96,6 @@ class KDEService(SketchEngine):
         self.sketch_cfg = swakde.SWAKDEConfig(
             L=cfg.L, W=cfg.W, window=cfg.window, eh_eps=cfg.eh_eps,
             heavy_cell_cap=cfg.heavy_cell_cap)
-        self._ctx = ss.make_service_ctx(cfg.mesh, cfg.num_shards)
         super().__init__(ingest_chunk=cfg.ingest_chunk,
                          query_block=cfg.query_block,
                          pipelined=cfg.pipelined,
@@ -102,10 +106,14 @@ class KDEService(SketchEngine):
                          max_batch=cfg.max_batch,
                          max_wait_us=cfg.max_wait_us,
                          fault_scope=cfg.fault_scope,
-                         device=device)
-        self.params = params if params is not None else init_params(
+                         device=device,
+                         ctx=ss.make_service_ctx(cfg.mesh, cfg.num_shards,
+                                                 device))
+        params = params if params is not None else init_params(
             cfg, torch.Generator().manual_seed(cfg.seed), self._device)
-        self.state = swakde.swakde_init(self.sketch_cfg, self._device)
+        self.state, self.params = ss.shard_swakde(
+            swakde.swakde_init(self.sketch_cfg, self._device), params,
+            self._ctx)
         self.grid_computes = 0
 
     # --- engine hooks (two-phase ingest) -----------------------------------
@@ -118,9 +126,9 @@ class KDEService(SketchEngine):
         return ss.sharded_swakde_commit_chunk(state, prep, self.sketch_cfg,
                                               self._ctx)
 
-    @staticmethod
-    def _clock_fn(t: int):
-        return lambda st: st._replace(t=torch.clamp(st.t, min=t))
+    def _clock_fn(self, t: int):
+        return lambda st: ss.map_shards(
+            lambda s: s._replace(t=torch.clamp(s.t, min=t)), st, self._ctx)
 
     def _apply_wal_record(self, kind: int, arrays: dict) -> None:
         if kind == persist.KIND_CLOCK:
@@ -181,9 +189,8 @@ class KDEService(SketchEngine):
         def density(ctx, qs):
             # Ŷ and the window clock from the *same* snapshot; one fp32
             # division by min(t, N) (at least 1), elementwise.
-            state = ctx[0]
-            denom = torch.clamp(torch.clamp(state.t, max=self.cfg.window),
-                                min=1)
+            t = ss.first_shard(ctx[0], self._ctx).t
+            denom = torch.clamp(torch.clamp(t, max=self.cfg.window), min=1)
             return kde(ctx, qs) / denom.float()
 
         return {"kde": kde, "density": density}
@@ -203,7 +210,7 @@ class KDEService(SketchEngine):
     @property
     def steps(self) -> int:
         """Stream steps consumed so far."""
-        return int(self.state.t)
+        return int(ss.first_shard(self.state, self._ctx).t)
 
     @property
     def sketch_bytes(self) -> int:

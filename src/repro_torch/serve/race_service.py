@@ -11,7 +11,9 @@ as ``KIND_DELETE`` when durable.
 Runtime, durability and micro-batching: `serve.engine.SketchEngine`.
 Parameters: drawn from a CPU ``torch.Generator`` seeded with ``cfg.seed``,
 or passed in with ``params=`` (the parity tests carry the reference's).
-Multi-device sharding is not ported (``num_shards > 1`` raises).
+Multi-device: ``num_shards > 1`` (or a ``mesh``) splits the L rows across
+the mesh's devices (`parallel.sketch_sharding`); answers, snapshots and
+recovery stay bit-identical to the single-device service.
 """
 from __future__ import annotations
 
@@ -43,7 +45,9 @@ class RACEServiceConfig:
     pipelined: bool = True
     # Query block: queries are answered in blocks of exactly this many rows.
     query_block: int = 1024
-    # Multi-device sharding: not ported (num_shards > 1 or a mesh raises).
+    # Multi-device sharding: num_shards > 1 splits the L rows across that
+    # many devices of the service's type (L must divide evenly); ``mesh``
+    # overrides with a prebuilt `parallel.sharding.Mesh`.
     num_shards: int = 0
     mesh: Optional[object] = None
     # Admission control: bound on queued-but-uncommitted rows (None = off).
@@ -79,7 +83,6 @@ class RACEService(SketchEngine):
 
     def __init__(self, cfg: RACEServiceConfig, device="cuda", params=None):
         self.cfg = cfg
-        self._ctx = ss.make_service_ctx(cfg.mesh, cfg.num_shards)
         super().__init__(ingest_chunk=cfg.ingest_chunk,
                          query_block=cfg.query_block,
                          pipelined=cfg.pipelined,
@@ -89,10 +92,13 @@ class RACEService(SketchEngine):
                          max_batch=cfg.max_batch,
                          max_wait_us=cfg.max_wait_us,
                          fault_scope=cfg.fault_scope,
-                         device=device)
-        self.params = params if params is not None else init_params(
+                         device=device,
+                         ctx=ss.make_service_ctx(cfg.mesh, cfg.num_shards,
+                                                 device))
+        params = params if params is not None else init_params(
             cfg, torch.Generator().manual_seed(cfg.seed), self._device)
-        self.state = race.race_init(cfg.L, cfg.W, self._device)
+        self.state, self.params = ss.shard_race(
+            race.race_init(cfg.L, cfg.W, self._device), params, self._ctx)
 
     # --- engine hooks (two-phase ingest) -----------------------------------
 
@@ -142,8 +148,8 @@ class RACEService(SketchEngine):
         def density(ctx, qs):
             # estimates and n from the *same* snapshot; one fp32 division
             # by max(n, 1), elementwise, as the reference's numpy divide.
-            state = ctx[0]
-            return kde(ctx, qs) / torch.clamp(state.n.float(), min=1.0)
+            n = ss.first_shard(ctx[0], self._ctx).n
+            return kde(ctx, qs) / torch.clamp(n.float(), min=1.0)
 
         return {"kde": kde, "density": density}
 
@@ -162,7 +168,7 @@ class RACEService(SketchEngine):
     @property
     def count(self) -> int:
         """Signed stream size (insertions - deletions) consumed so far."""
-        return int(self.state.n)
+        return int(ss.first_shard(self.state, self._ctx).n)
 
     @property
     def sketch_bytes(self) -> int:

@@ -21,8 +21,10 @@ tests do).  Keep decisions use the reference's key schedule bit for bit:
 chunk ``seq`` is kept under ``fold_in(fold_in(PRNGKey(seed + 1), salt),
 seq)`` (`core.prng`).
 
-Multi-device sharding is not ported: ``num_shards > 1`` or a ``mesh``
-raises `NotImplementedError` (`parallel.sketch_sharding`).
+Multi-device: set ``num_shards`` (or pass a ``mesh``) to split the L hash
+tables across the mesh's devices, the point store replicated on each
+(`parallel.sketch_sharding`); results, snapshots and recovery stay
+bit-identical to the single-device service.
 """
 from __future__ import annotations
 
@@ -73,7 +75,9 @@ class RetrievalConfig:
     batch_queries: bool = False
     max_batch: Optional[int] = None
     max_wait_us: float = 200.0
-    # Multi-device sharding: not ported (num_shards > 1 or a mesh raises).
+    # Multi-device sharding: num_shards > 1 splits the L tables across that
+    # many devices of the service's type (L must divide evenly); ``mesh``
+    # overrides with a prebuilt `parallel.sharding.Mesh`.
     num_shards: int = 0
     mesh: Optional[object] = None
     # Admission control: bound on queued-but-uncommitted rows (None = off).
@@ -97,7 +101,6 @@ class RetrievalService(SketchEngine):
 
     def __init__(self, cfg: RetrievalConfig, device="cuda", params=None):
         self.service_cfg = cfg
-        self._ctx = ss.make_service_ctx(cfg.mesh, cfg.num_shards)
         super().__init__(ingest_chunk=cfg.ingest_chunk,
                          query_block=cfg.query_block,
                          pipelined=cfg.pipelined,
@@ -108,17 +111,19 @@ class RetrievalService(SketchEngine):
                          max_batch=cfg.max_batch,
                          max_wait_us=cfg.max_wait_us,
                          fault_scope=cfg.fault_scope,
-                         device=device)
+                         device=device,
+                         ctx=ss.make_service_ctx(cfg.mesh, cfg.num_shards,
+                                                 device))
         base = sann.SANNConfig(
             dim=cfg.dim, n_max=cfg.n_max, eta=cfg.eta, r=cfg.r, c=cfg.c,
             w=cfg.w, L=cfg.L, k=cfg.k, bucket_cap=cfg.bucket_cap)
         if params is None:
-            self.cfg, self.params, state = sann.sann_init(
+            self.cfg, params, state = sann.sann_init(
                 base, torch.Generator().manual_seed(cfg.seed), self._device)
         else:
-            self.cfg, self.params = base.resolved(), params
+            self.cfg = base.resolved()
             state = sann.sann_empty_state(self.cfg, self._device)
-        self.state = state
+        self.state, self.params = ss.shard_sann(state, params, self._ctx)
         # Per-chunk keys are fold_in(base, chunk seq): a pure function of
         # the chunk's global sequence number, so the schedule is identical
         # across sync/async ingest and across crash-recovery replay.
@@ -201,7 +206,7 @@ class RetrievalService(SketchEngine):
 
     @property
     def stored(self) -> int:
-        return int(self.state.n_stored)
+        return int(ss.first_shard(self.state, self._ctx).n_stored)
 
     @property
     def sketch_bytes(self) -> int:

@@ -836,3 +836,191 @@ def test_rpc_cluster_spawned_workers_on_the_card(dev):
         cl.close()
         inproc.close()
     assert not any(p.is_alive() for p in procs)
+
+
+# --- sketch sharding on the card ----------------------------------------------
+
+def _sharded_case(mesh_devices):
+    """RACE (SRP), SW-AKDE (p-stable) and S-ANN at L = 8 on a mesh of
+    ``mesh_devices``, 4 chunks each, against one device on the first
+    card: gathered state equal bit for bit, answers equal, one launch of
+    each commit kernel (and of `srp_hash`) a shard a chunk.  Answers also
+    to Gaussian queries (inexact sums) at batches of 16 and 1024: a GEMM
+    of another shape may sum in another order, and a code would move."""
+    import numpy as np
+    from repro_torch.core import lsh, prng, race, sann, swakde
+    from repro_torch.parallel import sketch_sharding as ss
+    from repro_torch.parallel.sharding import Mesh
+    ctx = ss.make_sketch_ctx(Mesh(mesh_devices))
+    K, first = ctx.mesh.size, ctx.mesh.devices[0]
+    g = torch.Generator().manual_seed(0)
+    data = torch.from_numpy(_grid_rows(4 * 64, 7)).to(first)
+    qs = torch.from_numpy(_grid_rows(16, 8) + 1 / 32).to(first)
+    chunks = [data[i:i + 64] for i in range(0, 256, 64)]
+    gauss = [torch.randn((B, 8), generator=g).to(first) for B in (16, 1024)]
+
+    def on_mesh(state, params, prepare, commit, kernels):
+        st, p = ss.shard_state(state, ctx), ss.shard_params(params, ctx)
+        for i, x in enumerate(chunks):
+            ops.reset_launches()
+            st = commit(st, prepare(p, x, i))
+            for name in kernels:
+                assert ops.LAUNCHES[name] == K, (name, ops.LAUNCHES[name])
+        for sh, dev in zip(st, ctx.mesh.devices):
+            assert all(t.device == dev for t in sh), dev
+        return st, p
+
+    # RACE
+    p1 = lsh.init_srp(g, 8, 8, 2, 32, device=first)
+    one = race.race_init(8, 32, first)
+    for x in chunks:
+        one = race.race_update_batch(one, p1, x)
+    st, p = on_mesh(race.race_init(8, 32, first), p1,
+                    lambda p, x, i: ss.sharded_race_prepare_chunk(p, x, 32, ctx),
+                    lambda s, pr: ss.sharded_race_commit_chunk(s, pr, ctx),
+                    ("srp_hash", "race_hist"))
+    for a, b in zip(ss.gather_state(st, ctx), one):
+        assert torch.equal(a, b)
+    for q in [qs] + gauss:
+        assert torch.equal(ss.sharded_race_query_batch(st, p, q, ctx, 4),
+                           race.race_query_batch(one, p1, q, 4))
+    # SW-AKDE, expiring
+    cfg = swakde.SWAKDEConfig(L=8, W=32, window=150, eh_eps=0.2)
+    p1 = lsh.init_pstable(g, 8, 8, 2, 2.0, 32, device=first)
+    one = swakde.swakde_init(cfg, first)
+    for x in chunks:
+        one = swakde.swakde_update_chunk(one, p1, x, cfg)
+    st, p = on_mesh(swakde.swakde_init(cfg, first), p1,
+                    lambda p, x, i: ss.sharded_swakde_prepare_chunk(p, x, cfg,
+                                                                    ctx),
+                    lambda s, pr: ss.sharded_swakde_commit_chunk(s, pr, cfg,
+                                                                 ctx),
+                    ("swakde_segment_pass",))
+    for a, b in zip(ss.gather_state(st, ctx), one):
+        assert torch.equal(a, b)
+    grid = ss.sharded_swakde_grid_estimates(st, cfg, ctx)
+    want = swakde.swakde_query_batch(one, p1, qs, cfg)
+    assert torch.equal(ss.sharded_swakde_query_from_grid(grid, p, qs, cfg, ctx),
+                       want)
+    assert torch.equal(ss.sharded_swakde_query_batch(st, p, qs, cfg, ctx), want)
+    for q in gauss:
+        want = swakde.swakde_query_batch(one, p1, q, cfg)
+        assert torch.equal(ss.sharded_swakde_query_batch(st, p, q, cfg, ctx),
+                           want)
+        assert torch.equal(ss.sharded_swakde_query_from_grid(grid, p, q, cfg,
+                                                             ctx), want)
+    # S-ANN, the ring wrapping
+    scfg = sann.SANNConfig(dim=8, n_max=64, eta=0.1, r=0.4, c=2.0, w=1.0,
+                           L=8, k=3, bucket_cap=4).resolved()
+    p1 = lsh.init_pstable(g, 8, scfg.L, scfg.k, scfg.w, scfg.n_buckets,
+                          device=first)
+    keys = prng.split(prng.PRNGKey(3, first), 4)
+    one = sann.sann_empty_state(scfg, first)
+    for x, k in zip(chunks, keys):
+        one = sann.sann_insert_batch(one, p1, x, k, scfg)
+    st, p = on_mesh(sann.sann_empty_state(scfg, first), p1,
+                    lambda p, x, i: ss.sharded_sann_prepare_chunk(
+                        p, x, keys[i], scfg, ctx),
+                    lambda s, pr: ss.sharded_sann_commit_chunk(s, pr, scfg,
+                                                               ctx),
+                    ("sann_table_scatter",))
+    for a, b in zip(ss.gather_state(st, ctx), one):
+        assert torch.equal(a, b)
+    got = ss.sharded_sann_query_batch(st, p, data[-16:], scfg, ctx)
+    want = sann.sann_query_batch(one, p1, data[-16:], scfg)
+    assert bool(want.found.any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for q in [qs] + gauss:
+        ids, d = ss.sharded_sann_query_topk_batch(st, p, q, scfg, ctx, topk=8)
+        wi, wd = sann.sann_query_topk_batch(one, p1, q, scfg, 8)
+        assert torch.equal(ids, wi) and torch.equal(d, wd)
+    for q in gauss:
+        for a, b in zip(ss.sharded_sann_query_batch(st, p, q, scfg, ctx),
+                        sann.sann_query_batch(one, p1, q, scfg)):
+            assert torch.equal(a, b)
+
+
+def test_sharded_entries_on_one_card_match_one_device(dev):
+    _sharded_case((dev,) * 4)
+
+
+def test_sharded_services_on_one_card_match_one_device(dev, tmp_path):
+    """The three services on a mesh of one card repeated four times:
+    state, answers and snapshot files equal the single-device service's on
+    the card, and each recovers the other's directory."""
+    from repro_torch.parallel.sharding import Mesh
+    data = _grid_rows(400, 9)
+    qs = _grid_rows(16, 10) + 1 / 32
+    for kind in ("retrieval", "kde_pstable", "race"):
+        kw = dict(L=8, snapshot_every=2)
+        one = _service(kind, dev, snapshot_dir=str(tmp_path / kind / "1"),
+                       **kw)
+        four = _service(kind, dev, snapshot_dir=str(tmp_path / kind / "4"),
+                        mesh=Mesh((dev,) * 4), **kw)
+        assert four.num_shards == 4
+        for svc in (one, four):
+            _drive_service(kind, svc, data)
+        for a, b in zip(four.gather_state(four.state), one.state):
+            assert torch.equal(a, b)
+        _assert_same_answers(four._serve_query(four._default_query_kind, qs),
+                             one._serve_query(one._default_query_kind, qs))
+        one.close()
+        four.close()
+        for step in sorted((tmp_path / kind / "1").glob("step_*")):
+            for f in step.iterdir():
+                other = tmp_path / kind / "4" / step.name / f.name
+                assert f.read_bytes() == other.read_bytes(), (kind, f)
+        for src, mesh in (("1", Mesh((dev,) * 4)), ("4", None)):
+            rec = _service(kind, dev, snapshot_dir=str(tmp_path / kind / src),
+                           mesh=mesh, **kw)
+            assert rec.recover() >= 0
+            for a, b in zip(rec.gather_state(rec.state), one.state):
+                assert torch.equal(a, b)
+            rec.close()
+
+
+def test_kernels_launch_on_the_card_that_holds_their_tensors(dev):
+    """A kernel on tensors of the second card launches there (the count
+    moves, the answer equals the plain version); tensors on two cards are
+    refused before any launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(device=d1).manual_seed(1)
+    codes = torch.randint(0, 40, (1000, 7), generator=g, device=d1,
+                          dtype=torch.int32)
+    ops.reset_launches()
+    with torch.cuda.device(0):
+        got = race_update.race_hist(codes, 33)
+    assert got.device == d1 and ops.LAUNCHES["race_hist"] == 1
+    assert torch.equal(got.cpu(), ref.race_hist_ref(codes.cpu(), 33))
+    x = torch.randn((77, 50), generator=g, device=d1)
+    proj = torch.randn((50, 13 * 5), generator=g, device=d1)
+    mix = torch.randint(1, 2**31 - 1, (13, 5), generator=g, device=d1,
+                        dtype=torch.int64) * 2 + 1
+    flips, unexplained = ref.srp_code_flips(
+        x, proj, mix, srp_hash.srp_hash(x, proj, mix, 1009),
+        ref.srp_hash_ref(x, proj, mix, 1009))
+    assert unexplained == 0
+    q, k, v, live, ids, n_live = _sda_case(d1, 2, 2, 2, 256, 2048, 64, 1,
+                                           torch.bfloat16, 9)
+    torch.testing.assert_close(
+        sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, 2000, 64),
+        ref.sketch_decode_attn_ref(q, k, v, live, 2000, 64),
+        rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        srp_hash.srp_hash(x, proj.to(dev), mix, 1009)
+    with pytest.raises(ValueError, match="a launch takes one card"):
+        from repro_torch.kernels import _build
+        _build.launch("race_hist", "race_hist_launch", codes,
+                      torch.empty((7, 33), dtype=torch.int32, device=dev),
+                      1000, 7, 33)
+
+
+def test_shards_on_four_cards_match_one_card_repeated(dev):
+    """cuda:0..3 against ("cuda:0",) * 4 and one device: every shard's
+    leaves on its own card, the same state and answers."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    _sharded_case(tuple(torch.device("cuda", i) for i in range(4)))

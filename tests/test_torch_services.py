@@ -21,8 +21,9 @@ may differ).  Then:
   the core batch functions; `batch_plan` agrees with the reference's;
 * concurrent queries see only committed prefixes, built from the port's
   own core functions;
-* the services raise without a card unless given ``device="cpu"``, and on
-  more than one shard.
+* the services raise without a card unless given ``device="cpu"``, split
+  their sketch over ``num_shards`` devices, and refuse a mesh of another
+  type or without a "shard" axis.
 """
 import threading
 
@@ -41,6 +42,7 @@ from repro.serve.retrieval import RetrievalConfig as JRetrCfg
 from repro.serve.retrieval import RetrievalService as JRetr
 from repro_torch import convert
 from repro_torch.core import prng, race, sann, swakde
+from repro_torch.parallel.sharding import Mesh
 from repro_torch.persist import faults
 from repro_torch.serve import engine as tengine
 from repro_torch.serve.kde_service import KDEService, KDEServiceConfig
@@ -436,14 +438,19 @@ def test_grid_cache_once_per_commit_and_clock_replays(tmp_path):
     rec.close()
 
 
-def test_services_need_a_card_or_cpu_and_one_shard():
+def test_services_need_a_card_or_cpu_and_take_a_mesh():
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the CPU-only box")
     for kind in ("retrieval", "kde_srp", "race"):
         cfg_cls, svc_cls, *_, kw, _ = _spec(kind)
         with pytest.raises(RuntimeError, match="CUDA"):
             svc_cls(cfg_cls(**kw))
-        for extra in ({"num_shards": 2}, {"mesh": object()}):
-            with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-                svc_cls(cfg_cls(**kw, **extra), device="cpu")
         assert _port(kind).num_shards == 1
+        two = _port(kind, num_shards=2)
+        assert two.num_shards == 2 and len(two.state) == 2
+        two.close()
+        with pytest.raises(TypeError, match="Mesh"):
+            svc_cls(cfg_cls(**kw, mesh=object()), device="cpu")
+        with pytest.raises(ValueError, match="'shard'"):
+            svc_cls(cfg_cls(**kw, mesh=Mesh(("cpu",) * 2, ("data",))),
+                    device="cpu")
