@@ -3,11 +3,29 @@
 
     python3 chip_smoke.py [--seed N]            # one card, every phase
     python3 chip_smoke.py --cards 4             # the sharding phase on four
+    python3 chip_smoke.py --only train          # the training phase alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``), then drives the main path through the entry points a
 user calls, at full width:
 
+* **the training path** (first, on an empty card): gemma3-4b at its
+  published width and depth (34 layers, 4.55 G parameters, random bf16
+  weights from the seed) trained with AdamW on the reference's synthetic
+  token stream, B = 2 x S = 4096 with per-layer remat, through
+  ``make_train_step``, the drift monitor (SW-AKDE over the batches'
+  embeddings: one ``srp_hash`` and one ``swakde_segment_pass`` launch a
+  step, and no other kernel) before every step, for 6 steps and one
+  profiled step; the monitor's codes against the CPU under the flip rule
+  and its state against a CPU twin.  Then, at full width with the depth
+  cut to 2 layers: the fp32 step's loss, gradients and AdamW update
+  against the CPU's (TF32 off), the bf16 step against the fp32 one, and
+  the resumable ``Trainer`` (Adam8bit) interrupted after a step and
+  resumed from its checkpoint, bit-identical to an unbroken run.  The
+  flash attention ``Function`` against dense attention at gemma3-4b's
+  heads (global and 1024-window layers, fp32), the embedding gather's two
+  backwards run twice and timed, and attention forward + backward against
+  ``scaled_dot_product_attention`` as a yardstick;
 * **S-ANN at SIFT1M scale** (ann-benchmarks ``sift-128-euclidean``: 1 000 000
   base vectors, 10 000 queries, d = 128; synthetic SIFT-like data drawn on
   the device): ``sann_insert_chunked`` in chunks of 4096, then
@@ -205,6 +223,18 @@ SHARD_SERVICE_ROWS, SHARD_SNAPSHOT_EVERY = 24 * CHUNK, 8
 SHARD_SERVICE_SANN_NMAX = 16_384
 SHARD_FLEET_CHUNKS, SHARD_FLEET_SANN_NMAX = 64, 4096
 SHARD_FLEET_T = {"race": 256, "swakde": 256, "sann": 64}
+
+# the train phase: gemma3-4b at full width and depth, bf16, AdamW, B x S
+# with per-layer remat, TRAIN_STEPS steps then one profiled; the fp32
+# cross-check (card vs CPU) and the Trainer's resume at full width, depth
+# cut to 2 layers; flash vs dense attention within FLASH_TOL of the
+# largest value (fp32, sums in another order); after one AdamW step a
+# parameter may differ from the CPU's by more than TRAIN_PARAM_TOL (and a
+# rounding) only by what its two gradients predict through the step's
+# formula
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 4096, 6, 3e-4
+TRAIN_CROSS_LAYERS, TRAIN_CROSS_S, TRAIN_RESUME_S = 2, 256, 512
+FLASH_TOL, TRAIN_PARAM_TOL = 2e-5, 1e-7
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -1344,6 +1374,529 @@ def phase_lm_long(seed, serve_run, device, s_max=LM_LONG_S,
                                              for k, v in frac.items()},
           "live_fraction_mean": mean_frac,
           "launches": {"sketch_decode_attn": launches}})
+
+
+# --------------------------------------------------------------------------
+# phase 3e: the training path (gemma3-4b at full width): token stream, drift
+# monitor, flash attention with its backward, forward, AdamW, train step,
+# the resumable Trainer
+# --------------------------------------------------------------------------
+
+def _train_tokens(cfg, B, S, seed):
+    from repro_torch.data import pipeline
+    return pipeline.TokenStream(pipeline.DataConfig(
+        vocab=cfg.vocab, batch=B, seq=S, seed=seed)).next_batch()
+
+
+def _leaf_err(a, b) -> float:
+    """max |a - b| over max |b|, compared on the CPU in float32."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _cosine(a, b) -> float:
+    import torch
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
+    den = float(a.norm() * b.norm())
+    return float(a @ b) / den if den else float(torch.equal(a, b))
+
+
+def _drift_codes_check(monitor, cpu_params, tokens, device):
+    """The drift monitor's rows for ``tokens`` hashed on the card (the
+    `srp_hash` kernel) and by the plain version on the CPU: codes that
+    differ must sit at a sign boundary (`srp_flips`); returns the card's
+    codes and the count of those that differ."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref, srp_hash
+    emb = monitor.embed(tokens)
+    rows = torch.from_numpy(np.concatenate(
+        [emb, emb.mean(axis=0)[None]]).astype(np.float32))
+    p = monitor.params
+    x = rows.to(device)
+    got = srp_hash.srp_hash(x, p.proj, p.mix, p.n_buckets)
+    want = ref.srp_hash_ref(rows, cpu_params.proj, cpu_params.mix,
+                            cpu_params.n_buckets)
+    return got, srp_flips(x, p, got, want.to(device))
+
+
+def phase_train_full(seed, device, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS):
+    """gemma3-4b at full width and depth in bf16, AdamW: the token stream
+    and its drift monitor through `make_train_step` for ``steps`` steps (no
+    checkpoint), then one profiled step.  Each step must launch `srp_hash`
+    and `swakde_segment_pass` once (the monitor) and no other kernel.  A
+    CPU twin of the monitor's sketch, fed the card's own codes through the
+    plain commit, must hold the monitor's state bit for bit after every
+    step, and give its density before the update."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.checkpoint import tree_leaves, tree_map
+    from repro_torch.core import swakde
+    from repro_torch.core.util import mean_last
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step as ts
+    cfg = lm_config()
+    step_fn, init = ts.make_train_step(cfg, adam.adamw(lr=TRAIN_LR))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init(torch.Generator(device=device).manual_seed(seed + 21), device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(state.params)
+    n_params = sum(p.numel() for p in leaves)
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=B, seq=S, seed=seed)
+    stream = pipeline.TokenStream(dcfg)
+    monitor = pipeline.DriftMonitor(dcfg, device)
+    cpu_params = monitor.params._replace(proj=monitor.params.proj.cpu(),
+                                         mix=monitor.params.mix.cpu())
+    twin = swakde.swakde_init(monitor.cfg, "cpu")
+    rows, flips, density_err = [], 0, 0.0
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for i in range(steps + 1):
+        profiled = i == steps
+        tokens = stream.next_batch()
+        codes, n = _drift_codes_check(monitor, cpu_params, tokens, device)
+        flips += n
+        codes = codes.cpu()
+        twin_density = float(mean_last(swakde.swakde_row_estimates_from_codes(
+            twin, codes[-1], monitor.cfg)))
+        twin = swakde.swakde_commit_chunk(
+            twin, swakde.swakde_prepare_from_codes(codes[:-1], monitor.cfg),
+            monitor.cfg)
+        before = dict(ops.LAUNCHES)
+        sync(device)
+        # device activity alone on the card: ~10^5 kernels a step, and the
+        # host ops would triple the trace to reduce
+        acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
+                else [ProfilerActivity.CPU])
+        with (profile(activities=acts) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            drift = monitor.observe(tokens)          # ends in a host read
+            t1 = time.perf_counter()
+            batch = {"tokens": torch.from_numpy(tokens).to(device)}
+            state, m = step_fn(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            t2 = time.perf_counter()
+        per = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        launches = {k: launches[k] + per[k] for k in per}
+        if per != {k: int(k in ("srp_hash", "swakde_segment_pass"))
+                   for k in ops.LAUNCHES}:
+            fail(f"train: step {i + 1} launched {per}; the drift monitor "
+                 "launches srp_hash and swakde_segment_pass once a step")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"train: step {i + 1} loss {loss} grad norm {gnorm}")
+        differ = differing_leaves(monitor.state, twin)
+        err = abs(drift["density"] - twin_density) / max(abs(twin_density),
+                                                         1e-30)
+        density_err = max(density_err, err)
+        if differ or err > 1e-6:
+            fail(f"train: step {i + 1}: the drift monitor's state on the "
+                 f"card differs from the plain commit of its codes in "
+                 f"{differ}, density {drift['density']} against "
+                 f"{twin_density}")
+        rows.append({"step": i + 1, "ms": (t2 - t0) * 1e3,
+                     "drift_ms": (t1 - t0) * 1e3, "loss": loss,
+                     "grad_norm": gnorm, "density": drift["density"],
+                     "profiled": profiled})
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    events = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    reduce_s = time.perf_counter() - t0
+    events = sorted((r for r in events if r[1] > 0), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in events)
+    prof_wall_ms = rows[-1]["ms"]
+    # AdamW's update alone on the run's state, gradients in the parameters'
+    # dtype as the step gives them (after the peak was read); it reads p
+    # and g (bf16), m and v (fp32) and writes p, m and v once
+    grads = tree_map(lambda t: torch.full_like(t, 1e-3), state.params)
+    opt = adam.adamw(lr=TRAIN_LR)
+    opt_ms = time_ms(lambda: opt.update(grads, state.opt_state, state.params),
+                     2, device, warmup=1)
+    opt_bytes = sum(t.numel() * (3 * t.element_size() + 16) for t in leaves)
+    del grads
+    steady = sorted(r["ms"] for r in rows[1:-1])
+    step_ms = steady[len(steady) // 2]
+    emit({"phase": "train", "part": "full", "arch": cfg.arch_id,
+          "dtype": cfg.param_dtype, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+          "optimizer": "adamw", "lr": TRAIN_LR, "B": B, "S": S,
+          "remat": cfg.remat, "init_s": init_s, "steps": rows,
+          "step_ms_median": step_ms, "step_ms_first": rows[0]["ms"],
+          "tokens_per_s": B * S / (step_ms / 1e3),
+          "drift_ms_median": sorted(r["drift_ms"] for r in rows[1:-1])[
+              (steps - 1) // 2],
+          "peak_mem_bytes": peak,
+          "param_bytes": sum(p.numel() * p.element_size() for p in leaves),
+          "launches": launches,
+          "launches_per_step": {"srp_hash": 1, "swakde_segment_pass": 1},
+          "monitor_code_flips": flips, "monitor_state_equals_cpu": True,
+          "monitor_density_err_rel_max": density_err,
+          "profiled_step_ms": prof_wall_ms,
+          "profiled_device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e3 / prof_wall_ms,
+          # the profiled step's device time over an unprofiled step's wall
+          "device_busy_over_median_step": busy_us / 1e3 / step_ms,
+          "profile_reduce_s": reduce_s,
+          "profiled_device_ops": sum(r[2] for r in events),
+          "optimizer_update_ms": opt_ms,
+          "optimizer_update_bound_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
+          "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": c}
+                             for k, us, c in events[:10]]})
+    del state, m, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps + 1}
+
+
+def _dense_attention(q, k, v, window):
+    """Causal (and windowed) attention through one masked softmax over the
+    whole (S, S) score matrix, in q's dtype, GQA by repeating K and V."""
+    import torch
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    k = k.repeat_interleave(G, dim=2)
+    v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def phase_train_flash(device, B=1, S=TRAIN_S):
+    """The flash `Function` against autograd through dense masked-softmax
+    attention on the card, fp32 (TF32 off), at gemma3-4b's heads (8 x 256,
+    kv 4), for a global and a 1024-window layer: output and gradients
+    within FLASH_TOL of the largest value."""
+    import torch
+    from repro_torch.models import flash
+    cfg = lm_config()
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=device).manual_seed(31)
+    mk = lambda *s: torch.randn(s, generator=gen, device=device)
+    q, k, v, go = mk(B, S, H, dh), mk(B, S, Hkv, dh), mk(B, S, Hkv, dh), mk(B, S, H, dh)
+    out = []
+    for window in (0, cfg.local_window):
+        res = {}
+        for name, fn in (("flash", lambda a, b, c: flash.flash_attention(
+                              a, b, c, causal=True, window=window)),
+                         ("dense", lambda a, b, c: _dense_attention(a, b, c, window))):
+            a, b, c = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(a, b, c)
+            o.backward(go)
+            res[name] = (o.detach(), a.grad, b.grad, c.grad)
+        errs = {n: _leaf_err(x, y) for n, x, y in zip(
+            ("o", "dq", "dk", "dv"), res["flash"], res["dense"])}
+        out.append({"window": window, "err_rel": errs})
+        if max(errs.values()) > FLASH_TOL:
+            fail(f"train: flash attention disagrees with dense attention "
+                 f"(window {window}): {errs}")
+    emit({"phase": "train", "part": "flash_vs_dense", "B": B, "S": S,
+          "heads": [H, Hkv, dh], "dtype": "float32", "tol_rel": FLASH_TOL,
+          "cases": out})
+
+
+def phase_train_cross_check(seed, device, n_layers=TRAIN_CROSS_LAYERS,
+                            B=1, S=TRAIN_CROSS_S):
+    """gemma3-4b at full width, depth cut to ``n_layers``: the fp32 step's
+    loss, gradients and AdamW update on the card against the same step on
+    the CPU (the plain path; TF32 off), then the bf16 step against the
+    fp32 one on the card."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten, tree_map
+    from repro_torch.models import model
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step as ts
+    cfg = lm_config(n_layers, "float32")
+    params = model.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed + 22), device)
+    tokens = torch.from_numpy(_train_tokens(cfg, B, S, seed + 23))
+    # the same weights in bf16 on the card and in fp32 on the CPU
+    p16 = tree_map(lambda t: t.bfloat16(), params)
+    copies = {"card": params,
+              "cpu": tree_map(lambda t: t.to("cpu", copy=True), params)}
+    runs = {}
+    for name, d in (("card", device), ("cpu", torch.device("cpu"))):
+        p = copies.pop(name)
+        t0 = time.perf_counter()
+        g, m = ts.grads_and_metrics(p, cfg, {"tokens": tokens.to(d)})
+        opt = adam.adamw(lr=TRAIN_LR)
+        opt.update(g, opt.init(p), p)
+        sync(device)
+        runs[name] = dict(p=p, g=g, m=m, gnorm=ts.grad_norm(g),
+                            s=time.perf_counter() - t0)
+    dev, cpu = runs["card"], runs["cpu"]
+    loss_err = abs(float(dev["m"]["loss"]) - float(cpu["m"]["loss"])) \
+        / abs(float(cpu["m"]["loss"]))
+    gnorm_err = abs(float(dev["gnorm"]) - float(cpu["gnorm"])) / float(cpu["gnorm"])
+    grad_err = {k: _leaf_err(a, b) for (k, a), (_, b) in
+                zip(_flatten(dev["g"]), _flatten(cpu["g"]))}
+    # AdamW's first step (zero moments, AdamW's defaults) moves a parameter
+    # by -lr_t * (u + wd * p) with u = g / (|g| + eps): +-1 unless |g| is
+    # within a few eps of 0.  Where the card's and the CPU's parameters
+    # are more than PARAM_TOL apart, the difference of their u (a sign
+    # flip, or both gradients that close to 0) must account for all of it
+    # but PARAM_TOL and one float32 rounding of the parameter.
+    lr_t = float(adam._step_scalars(torch.ones((), dtype=torch.int32),
+                                    TRAIN_LR, 0.9, 0.95, 100)[0])
+    past, flipped, unexplained, resid_max, small = 0, 0, 0, 0.0, 0.0
+    for (k, a), (_, b), (_, ga), (_, gb) in zip(
+            _flatten(dev["p"]), _flatten(cpu["p"]), _flatten(dev["g"]),
+            _flatten(cpu["g"])):
+        diff = a.cpu() - b
+        bad = diff.abs() > TRAIN_PARAM_TOL
+        if not bad.any():
+            continue
+        past += int(bad.sum())
+        gmax = float(gb.abs().max().clamp(min=1e-30))
+        ga, gb = ga.cpu()[bad].double(), gb[bad].double()
+        u = [g / (g.abs() + 1e-8) for g in (ga, gb)]
+        resid = (diff[bad].double() + lr_t * (u[0] - u[1])).abs()
+        allow = TRAIN_PARAM_TOL + b[bad].double().abs() * 2.0 ** -23
+        flipped += int((ga.sign() != gb.sign()).sum())
+        unexplained += int((resid > allow).sum())
+        resid_max = max(resid_max, float(resid.max()))
+        small = max(small, float(torch.minimum(ga.abs(), gb.abs()).max())
+                    / gmax)
+    row = {"phase": "train", "part": "cross_check", "arch": cfg.arch_id,
+           "layers": [n_layers, lm_config().n_layers], "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "B": B, "S": S, "fp32_loss": float(dev["m"]["loss"]),
+           "loss_err_rel": loss_err, "grad_norm_err_rel": gnorm_err,
+           "grad_err_rel_max": max(grad_err.values()),
+           "grad_err_rel_worst_leaf": max(grad_err, key=grad_err.get),
+           "params_past_tol": past, "params_past_tol_sign_flips": flipped,
+           "params_past_tol_unexplained": unexplained,
+           "params_past_tol_residual_max": resid_max,
+           "params_past_tol_min_grad_rel_max": small,
+           "param_tol": TRAIN_PARAM_TOL, "lr_t": lr_t, "card_step_s": dev["s"],
+           "cpu_step_s": cpu["s"],
+           "depth_cut": "the CPU copy of the fp32 weights, moments and "
+                        "gradients: 24 GB at 2 layers"}
+    if (loss_err > 1e-5 or gnorm_err > 1e-4 or max(grad_err.values()) > 1e-4
+            or unexplained):
+        emit(row)
+        fail("train: the card's fp32 step disagrees with the CPU's")
+    # the bf16 step against the fp32 step, from the same weights
+    cfg16 = lm_config(n_layers, "bfloat16")
+    g16, m16 = ts.grads_and_metrics(p16, cfg16, {"tokens": tokens.to(device)})
+    adam.adamw(lr=TRAIN_LR).update(g16, adam.adamw(lr=TRAIN_LR).init(p16), p16)
+    cos = {k: _cosine(a, b) for (k, a), (_, b) in
+           zip(_flatten(g16), _flatten(dev["g"]))}
+    row.update(bf16_loss=float(m16["loss"]),
+               bf16_loss_err_rel=abs(float(m16["loss"]) - float(dev["m"]["loss"]))
+               / abs(float(dev["m"]["loss"])),
+               bf16_grad_norm_err_rel=abs(float(ts.grad_norm(g16))
+                                          - float(dev["gnorm"])) / float(dev["gnorm"]),
+               bf16_grad_cosine_min=min(cos.values()),
+               bf16_grad_cosine_worst_leaf=min(cos, key=cos.get),
+               bf16_params_finite=all(bool(torch.isfinite(t).all())
+                                      for _, t in _flatten(p16)))
+    emit(row)
+    if (row["bf16_loss_err_rel"] > 2e-2 or row["bf16_grad_norm_err_rel"] > 5e-2
+            or row["bf16_grad_cosine_min"] < 0.99 or not row["bf16_params_finite"]):
+        fail("train: the card's bf16 step is too far from its fp32 step")
+    del runs, dev, cpu, p16, g16
+    torch.cuda.empty_cache()
+
+
+class _TimedCheckpointer:
+    """An `AsyncCheckpointer` that records the seconds each save spends on
+    the caller (the copy to the host) and in `wait` (the write); with
+    ``write=False`` it saves nothing (a run whose checkpoint no one reads)."""
+
+    def __init__(self, write: bool = True):
+        from repro_torch.checkpoint.checkpoint import AsyncCheckpointer
+        self._inner = AsyncCheckpointer()
+        self.write = write
+        self.save_s, self.wait_s = [], []
+
+    def save(self, *args, **kw):
+        t0 = time.perf_counter()
+        if self.write:
+            self._inner.save(*args, **kw)
+        self.save_s.append(time.perf_counter() - t0)
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self._inner.wait()
+        self.wait_s.append(time.perf_counter() - t0)
+
+
+def phase_train_resume(seed, device, n_layers=TRAIN_CROSS_LAYERS, B=2,
+                       S=TRAIN_RESUME_S):
+    """The Trainer (Adam8bit, drift monitor on) at full width, depth cut to
+    ``n_layers``: 2 steps without a break against 1 step, a checkpoint, and
+    a fresh Trainer resuming it for the second: parameters, optimizer state
+    and step bit-identical on the card."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.data import pipeline
+    from repro_torch.train import trainer
+    cfg = lm_config(n_layers, "bfloat16")
+    # one checkpoint: bf16 params widened to fp32, int8 moments, fp32 scales
+    est = cfg.param_count() * (4 + 2 + 2 * 4 / 64)
+    free = shutil.disk_usage(ROOT).free
+    if free < 2.5 * est:           # two checkpoints at once, and a margin
+        n_layers = 1
+        cfg = lm_config(1, "bfloat16")
+    root = ROOT / "build" / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=B, seq=S, seed=seed + 24)
+
+    restore_s = []
+
+    def timed_restore(*args, **kw):       # the Trainer's resume, timed
+        t0 = time.perf_counter()
+        out = restore(*args, **kw)
+        sync(device)
+        restore_s.append(time.perf_counter() - t0)
+        return out
+
+    def run(tag, steps, write=True):
+        tcfg = trainer.TrainerConfig(steps=steps, ckpt_every=100,
+                                     ckpt_dir=str(root / tag),
+                                     optimizer="adam8bit", lr=TRAIN_LR,
+                                     log_every=100)
+        tr = trainer.Trainer(cfg, dcfg, tcfg, device=device,
+                             log_fn=lambda s: None)
+        tr.ckpt = _TimedCheckpointer(write)
+        t0 = time.perf_counter()
+        out = tr.run(seed=seed + 25)
+        sync(device)
+        return out, tr.ckpt, time.perf_counter() - t0
+
+    whole, _, whole_s = run("whole", 2, write=False)
+    want = convert.train_state_to_numpy(whole["state"])
+    del whole
+    first, first_ck, _ = run("broken", 1)
+    ckpt_bytes = _dir_bytes(root / "broken" / "step_1")
+    del first
+    restore, trainer.ckpt_lib.restore = trainer.ckpt_lib.restore, timed_restore
+    try:
+        resumed, second_ck, resumed_s = run("broken", 2)
+    finally:
+        trainer.ckpt_lib.restore = restore
+    got = convert.train_state_to_numpy(resumed["state"])
+    differ = [k for (k, a), (_, b) in zip(_flatten(got), _flatten(want))
+              if not (a.shape == b.shape and (a == b).all())]
+    row = {"phase": "train", "part": "resume", "arch": cfg.arch_id,
+           "layers": [n_layers, lm_config().n_layers], "optimizer": "adam8bit",
+           "B": B, "S": S, "steps": 2, "resumed_at": 1,
+           "history_steps": [h["step"] for h in resumed["history"]],
+           "differing_leaves": differ, "step": int(resumed["state"].step),
+           "ckpt_bytes": ckpt_bytes, "disk_free_bytes": free,
+           "save_host_copy_s": first_ck.save_s + second_ck.save_s,
+           "save_write_s": first_ck.wait_s + second_ck.wait_s,
+           "restore_s": restore_s, "uninterrupted_run_s": whole_s,
+           "uninterrupted_run_saved": False,
+           "resumed_run_s": resumed_s, "embedding_backward": "F.embedding"}
+    emit(row)
+    shutil.rmtree(root, ignore_errors=True)
+    if differ or row["step"] != 2 or row["history_steps"] != [2]:
+        fail(f"train: the resumed run differs from the uninterrupted one: {differ}")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+def phase_train_embedding(device, B=TRAIN_B, S=TRAIN_S, iters=5):
+    """What makes the embedding gather's gradient repeat bit for bit: the
+    gather's own backward (``index_put_`` with accumulate) against
+    `F.embedding`'s, at gemma3-4b's table and the full run's tokens, twice
+    each, timed forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    cfg = lm_config()
+    gen = torch.Generator(device=device).manual_seed(32)
+    table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+    tokens = torch.from_numpy(_train_tokens(cfg, B, S, 33)).to(device)
+    go = torch.randn((B, S, cfg.d_model), generator=gen, device=device,
+                     dtype=torch.bfloat16)
+    ways = {"index": lambda t: t[tokens], "embedding": lambda t: F.embedding(tokens, t)}
+    row = {"phase": "train", "part": "embedding_backward", "B": B, "S": S,
+           "vocab": cfg.vocab, "d_model": cfg.d_model,
+           "distinct_tokens": int(tokens.unique().numel())}
+    for name, fn in ways.items():
+        leaf = table.detach().requires_grad_()
+
+        def grad():
+            return torch.autograd.grad(fn(leaf), leaf, go)[0]
+
+        a, b = grad(), grad()
+        row[f"{name}_repeats_bitwise"] = bool(torch.equal(a, b))
+        row[f"{name}_fwd_bwd_ms"] = time_ms(grad, iters, device)
+    emit(row)
+    if not row["embedding_repeats_bitwise"]:
+        fail("train: F.embedding's backward does not repeat bit for bit")
+
+
+def phase_train_yardstick(device, B=TRAIN_B, S=TRAIN_S, iters=3):
+    """Attention forward + backward of one gemma3-4b global layer and one
+    local (1024-window) layer at the full run's B x S, bf16: the port's
+    flash `Function` against `scaled_dot_product_attention` with the same
+    mask (a yardstick only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import flash
+    cfg = lm_config()
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=device).manual_seed(34)
+    mk = lambda *s: torch.randn(s, generator=gen, device=device,
+                                dtype=torch.bfloat16)
+    q, k, v, go = mk(B, S, H, dh), mk(B, S, Hkv, dh), mk(B, S, Hkv, dh), mk(B, S, H, dh)
+    pos = torch.arange(S, device=device)
+    out = []
+    for window in (0, cfg.local_window):
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+
+        def port():
+            a, b, c = (t.detach().requires_grad_() for t in (q, k, v))
+            o = flash.flash_attention(a, b, c, causal=True, window=window)
+            o.backward(go)
+            return o
+
+        def sdpa():
+            a, b, c = (t.detach().requires_grad_() for t in (q, k, v))
+            kk = b.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+            vv = c.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+            o = F.scaled_dot_product_attention(
+                a.transpose(1, 2), kk, vv, attn_mask=mask if window else None,
+                is_causal=not window).transpose(1, 2)
+            o.backward(go)
+            return o
+
+        err = _leaf_err(port(), sdpa())
+        # causal: half the (S, S) products; a window of W: about S * W
+        live = S * (S + 1) / 2 if not window else S * window - window * (window - 1) / 2
+        flops = 4 * B * H * live * dh * 3.5      # fwd 2 products, bwd 5
+        out.append({"window": window, "port_ms": time_ms(port, iters, device, 1),
+                    "sdpa_ms": time_ms(sdpa, iters, device, 1),
+                    "o_err_rel": err, "flops": flops,
+                    "bf16_bound_ms": flops / 989e12 * 1e3,
+                    # the port's block products are fp32 (TF32 off)
+                    "fp32_bound_ms": flops / PEAK_FP32_PER_S * 1e3})
+    emit({"phase": "train", "part": "attention_yardstick", "B": B, "S": S,
+          "heads": [H, Hkv, dh], "dtype": "bfloat16", "cases": out})
+
+
+def phase_train(seed, device):
+    """The training path: the full run, the flash check, the cross-checks,
+    the Trainer's resume, the embedding backward and the SDPA yardstick."""
+    run = phase_train_full(seed, device)
+    phase_train_flash(device)
+    phase_train_cross_check(seed, device)
+    phase_train_resume(seed, device)
+    phase_train_embedding(device)
+    phase_train_yardstick(device)
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -4116,6 +4669,8 @@ def main(argv=None) -> int:
                     help="1 (default): every phase, the sharding phase on "
                     "one card repeated; N > 1: only the sharding phase (and "
                     "the phases it reads) on cards 0..N-1")
+    ap.add_argument("--only", choices=["train"],
+                    help="run only this phase (after the device phase)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4137,6 +4692,13 @@ def main(argv=None) -> int:
         return 2
 
     phase_device()
+    if args.only == "train":
+        phase_train(args.seed, device)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    train_run = phase_train(args.seed, device) if args.cards == 1 else None
     sann_run = phase_sann(args.seed, device)
     kde_run = phase_kde(args.seed, device)
     srp_run = phase_srp_kde(args.seed, kde_run, device)
@@ -4211,6 +4773,7 @@ def main(argv=None) -> int:
             "fleet_cluster_launches": fleet_cluster[row["name"]],
             "rpc_cluster_launches": rpc_run["launches"][row["name"]],
             "sharding_launches": sharding_run["launches"][row["name"]],
+            "train_launches": train_run["launches"][row["name"]],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

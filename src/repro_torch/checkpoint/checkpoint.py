@@ -92,13 +92,16 @@ def _dtype_name(leaf) -> str:
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array; bfloat16 widened to float32 (exact)."""
+    """A leaf as a host numpy array that shares no memory with it (a leaf
+    already on the host is copied: the tree may change in place while an
+    async write runs); bfloat16 widened to float32 (exact)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
-    return np.asarray(leaf)
+            return t.float().cpu().numpy()          # a new tensor already
+        a = t.cpu().numpy()
+        return a.copy() if t.device.type == "cpu" else a
+    return np.array(leaf)
 
 
 def fsync_path(p: str | pathlib.Path) -> None:
@@ -155,8 +158,8 @@ def save(path: str | pathlib.Path, tree: Any, step: int,
 
 class AsyncCheckpointer:
     """Background-thread writer: the copy to the host happens on the caller
-    thread (so the tree may change on the device right after), the
-    serialization on the worker.
+    thread (so the tree may change in place right after, on the card or on
+    the host), the serialization on the worker.
 
     A failed background write is re-raised on the next ``wait()`` / ``save()``
     instead of dying silently in the worker thread — callers that rely on a

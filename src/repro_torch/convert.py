@@ -13,7 +13,9 @@ float32, bfloat16, bool).
 The language model's parameters and KV cache travel as the reference's
 nested dicts (``jax.tree.map(np.asarray, params)``): `lm_params_from_numpy`
 builds the port's `models.model.ParamTree`, `lm_cache_from_numpy` and
-`lm_cache_to_numpy` carry a cache both ways.
+`lm_cache_to_numpy` carry a cache both ways.  A training state (the
+reference's ``TrainState`` with any of its optimizers' states, as numpy)
+crosses with `train_state_from_numpy` and `train_state_to_numpy`.
 """
 from __future__ import annotations
 
@@ -138,3 +140,46 @@ def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict:
             v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
         out[k] = v
     return out
+
+
+def _fields_of(obj) -> dict:
+    return dict(obj._asdict()) if hasattr(obj, "_asdict") else dict(obj)
+
+
+def train_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> dict:
+    """A reference parameter pytree as numpy → nested dicts of tensors on
+    ``device`` (the training layout; `lm_params_from_numpy` builds the
+    decode's `ParamTree`)."""
+    return _tree(tree, resolve_device(device))
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """A reference ``TrainState`` whose leaves are numpy (``params``,
+    ``opt_state`` of AdamW, Adam8bit or Adafactor, ``step``) → the port's
+    `train.train_step.TrainState` on ``device``.  The optimizer state's
+    class follows its field names."""
+    from .optim import adam
+    from .train.train_step import TrainState
+    device = resolve_device(device)
+    d = _fields_of(state)
+    opt = _fields_of(d["opt_state"])
+    cls = next(c for c in (adam.AdamState, adam.Adam8bitState,
+                           adam.AdafactorState)
+               if set(c._fields) == set(opt))
+    opt_state = cls(**{f: (_tensor(v, device) if f == "step" else _tree(v, device))
+                       for f, v in opt.items()})
+    return TrainState(params=_tree(d["params"], device), opt_state=opt_state,
+                      step=_tensor(d["step"], device))
+
+
+def train_state_to_numpy(state) -> dict:
+    """A port ``TrainState`` → nested dicts of numpy arrays (bfloat16
+    leaves as float32, which holds them exactly)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        if isinstance(x, Mapping) or hasattr(x, "_asdict"):
+            return {k: host(v) for k, v in _fields_of(x).items()}
+        return x
+    return host(state)

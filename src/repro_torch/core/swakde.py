@@ -197,8 +197,15 @@ def swakde_row_estimates(state: SWAKDEState, params, q: torch.Tensor,
                          cfg: SWAKDEConfig) -> torch.Tensor:
     """Per-row EH window counts at ``q (d,)`` → (L,) float32: one gather of
     the L hit cells, queried at the clock ``t - 1``."""
-    codes = lsh.hash_points(params, q).long()
-    rows = torch.arange(cfg.L, device=q.device)
+    return swakde_row_estimates_from_codes(
+        state, lsh.hash_points(params, q), cfg)
+
+
+def swakde_row_estimates_from_codes(state: SWAKDEState, codes: torch.Tensor,
+                                    cfg: SWAKDEConfig) -> torch.Tensor:
+    """`swakde_row_estimates` of a point already hashed: ``codes (L,)``."""
+    codes = codes.long()
+    rows = torch.arange(cfg.L, device=codes.device)
     return eh_query_cells(state.ts[rows, codes], state.num[rows, codes],
                           state.t - 1, cfg.eh_config())
 

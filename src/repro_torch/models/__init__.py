@@ -1,2 +1,3 @@
-"""The language-model stack for decoding: layers and dense-family init."""
-from . import layers, model  # noqa: F401
+"""The language-model stack: layers, flash attention, dense-family init and
+forward."""
+from . import flash, layers, model  # noqa: F401

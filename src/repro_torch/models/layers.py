@@ -1,8 +1,8 @@
-"""Shared model layers for decoding: RMSNorm, RoPE, MLP, embedding.
+"""Shared model layers: RMSNorm, RoPE, blockwise flash attention, MLP,
+embedding.
 
-Counterpart of the reference's ``models/layers.py`` (``rms_norm``, ``rope``,
-the MLP and the embedding; its blockwise flash ``attention`` goes with the
-training slice).  Layers are functions over dicts of tensors laid out as the
+Counterpart of the reference's ``models/layers.py``.  Layers are functions
+over dicts of tensors laid out as the
 reference's pytrees, so `convert.lm_params_from_numpy` carries them over
 leaf for leaf.  Each mirrors the reference's float32 arithmetic as XLA
 compiles it: a mean is sum × fp32 reciprocal, a division by a constant is a
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.util import fp32_reciprocal, mean_last
+from .flash import flash_attention
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -80,6 +81,33 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
     return p
 
 
+def attention(params, x: torch.Tensor, positions: torch.Tensor, *,
+              n_heads: int, n_kv_heads: int, head_dim: int,
+              rope_theta: float, qk_norm: bool = False, causal: bool = True,
+              window: int = 0, softcap: float = 0.0, norm_eps: float = 1e-6,
+              cross_kv=None):
+    """Full-sequence (train / prefill) attention of ``x (B, S, d)`` at
+    ``positions (B, S)``.  Returns ``(out, (k, v))``; ``cross_kv = (k, v)``
+    attends to given keys and values (no RoPE, not causal)."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, n_kv_heads, head_dim)
+        v = (x @ params["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    else:
+        k, v = cross_kv
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    if cross_kv is None and rope_theta > 0:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    out = flash_attention(q, k, v, causal=causal and cross_kv is None,
+                          window=window, softcap=softcap)
+    out = out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+    return out, (k, v)
+
+
 def init_mlp(gen, d_model: int, d_ff: int, dtype, device, gated: bool = True,
              lead: tuple = ()) -> dict:
     """MLP weights; ``lead`` prepends axes (a stack of layers)."""
@@ -115,7 +143,11 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device,
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    """The rows of the embedding table at ``tokens``.  `F.embedding`'s
+    backward sums each row's gradient in a fixed order on the card (the
+    gather's own backward, ``index_put_`` with accumulate, adds by atomics),
+    so a training step repeats bit for bit."""
+    return F.embedding(tokens, params["embed"])
 
 
 def unembed(params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:

@@ -1,22 +1,31 @@
-"""Model assembly for the dense family: ``init_model`` and the layer pattern.
+"""Model assembly for the dense family: init, the layer pattern, forward.
 
 Counterpart of the reference's ``models/model.py`` (``window_pattern``, the
-dense block's init and ``init_model`` for the dense family; ``forward`` goes
-with the training slice).
+dense block, ``init_model`` and ``forward`` for the dense family).
 
 Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names map
 one to one onto the reference's pytree: ``blocks.attn.wq`` is
 ``params["blocks"]["attn"]["wq"]``, stacked on a leading layer axis as the
 reference stacks it for ``lax.scan``.  The tree indexes like the reference's
 dict (``params["blocks"]["attn"]["wq"]``, ``"ln1_post" in p``), so the decode
-code reads as the reference's does.  Parameters never take gradients here.
+code reads as the reference's does.  A `ParamTree`'s parameters never take
+gradients: it serves the decode.  Training holds the same tree as nested
+dicts of tensors (`init_params`, ``ParamTree.to_dict``), and `forward` takes
+either.  Its ``blocks`` may also be a list of per-layer trees (the train
+step passes per-layer leaves that take gradients); with ``cfg.remat`` and
+gradients on, each layer is rematerialised in the backward
+(``torch.utils.checkpoint``), as the reference's ``_scan_stack`` is.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.util import resolve_device
@@ -79,20 +88,82 @@ def _init_dense_blocks(gen, cfg: ModelConfig, dt, device) -> dict:
     return p
 
 
-def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> ParamTree:
-    """Random parameters with the reference's distributions (normal ×
-    1/sqrt(fan_in), embedding normal × 0.02, norm weights zero), drawn from
-    ``gen`` on ``device`` (the generator's device)."""
+def _dense_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"init_model: family {cfg.family!r} is not ported yet "
+            f"{what}: family {cfg.family!r} is not ported yet "
             "(ROADMAP.md, queue 1)")
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> dict:
+    """Random parameters with the reference's distributions (normal ×
+    1/sqrt(fan_in), embedding normal × 0.02, norm weights zero), drawn from
+    ``gen`` on ``device`` (the generator's device), as nested dicts."""
+    _dense_only(cfg, "init_model")
     device = resolve_device(device)
     dt = _dtype(cfg)
-    params = {
+    return {
         "embedding": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
                                            device, cfg.tie_embeddings),
         "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "blocks": _init_dense_blocks(gen, cfg, dt, device),
     }
-    return ParamTree(params)
+
+
+def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> ParamTree:
+    """`init_params` as a `ParamTree` (the decode's parameters)."""
+    return ParamTree(init_params(cfg, gen, device))
+
+
+def layer_params(blocks, i: int) -> dict:
+    """Layer ``i``'s tree: a slice of the stacked ``blocks`` (or entry ``i``
+    of a list of per-layer trees)."""
+    if isinstance(blocks, (list, tuple)):
+        return blocks[i]
+    return {k: layer_params(v, i) if isinstance(v, Mapping) else v[i]
+            for k, v in blocks.items()}
+
+
+def _dense_block(p, x, positions, window: int, cfg: ModelConfig):
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, _ = layers.attention(
+        p["attn"], h, positions,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm, causal=True, window=window,
+        softcap=cfg.attn_softcap, norm_eps=cfg.norm_eps)
+    if "ln1_post" in p:
+        a = layers.rms_norm(a, p["ln1_post"], cfg.norm_eps)
+    x = x + a
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    m = layers.mlp(p["mlp"], h,
+                   act=layers.gelu_tanh if cfg.mlp_act == "gelu" else F.silu)
+    if "ln2_post" in p:
+        m = layers.rms_norm(m, p["ln2_post"], cfg.norm_eps)
+    return x + m
+
+
+def forward(params, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
+    """``batch["tokens"] (B, S)`` → ``(logits (B, S, vocab) fp32, aux)``;
+    ``return_hidden=True`` skips the unembedding and yields the final normed
+    hidden states (the train loss unembeds them chunk by chunk)."""
+    _dense_only(cfg, "forward")
+    tree = params.to_dict() if isinstance(params, ParamTree) else params
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = layers.embed(tree["embedding"], tokens)
+    if cfg.scale_embeddings:
+        # the reference rounds sqrt(d_model) to the activation dtype first
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, window in enumerate(window_pattern(cfg)):
+        block = functools.partial(_dense_block, layer_params(tree["blocks"], i),
+                                  positions=positions, window=window, cfg=cfg)
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    x = layers.rms_norm(x, tree["ln_f"], cfg.norm_eps)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if return_hidden:
+        return x, aux
+    return layers.unembed(tree["embedding"], x, cfg.final_softcap), aux

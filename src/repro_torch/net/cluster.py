@@ -151,7 +151,9 @@ class RemoteEngine:
 
     def snapshot(self):
         meta, arrays = self._ch.call(P.K_SNAPSHOT)
-        like = tree_leaves(self._tpl.state)
+        # a worker sends its state in single-device form (`gather_state`)
+        like_tree = self._tpl.gather_state(self._tpl.state)
+        like = tree_leaves(like_tree)
         n = int(meta["num_leaves"])
         if n != len(like):
             raise P.ProtocolError(
@@ -159,7 +161,12 @@ class RemoteEngine:
                 f"template's state {len(like)}")
         leaves = [_leaf_tensor(arrays[f"l{i}"], t, i)
                   for i, t in enumerate(like)]
-        return tree_unflatten(self._tpl.state, leaves), int(meta["version"])
+        return tree_unflatten(like_tree, leaves), int(meta["version"])
+
+    @staticmethod
+    def gather_state(state):
+        """Snapshots arrive in single-device form already."""
+        return state
 
     def query(self, queries, kind: Optional[str] = None):
         """Direct worker-local query (not the merged cluster view) — the

@@ -229,6 +229,19 @@ def shard_params(params, ctx: ShardingCtx):
     return tuple(_local_params(p, L_local, i) for i, p in enumerate(blocks))
 
 
+def gather_params(params, ctx: ShardingCtx):
+    """The whole sketch's LSH params on the mesh's first device, from the
+    per-shard row blocks `shard_params` gives (the params themselves
+    without a mesh)."""
+    if ctx.mesh is None:
+        return params
+    whole = _gather(params, _param_specs(params[0], ctx), ctx.mesh)
+    whole = whole._replace(L=sum(p.L for p in params))
+    if isinstance(whole, lsh.PStableParams):
+        whole = whole._replace(row0=None)
+    return whole
+
+
 def gather_state(state, ctx: ShardingCtx):
     """The single-device form of a sharded state, on the mesh's first
     device (the state itself without a mesh)."""

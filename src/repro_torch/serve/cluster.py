@@ -31,6 +31,14 @@ sketch states through the merge algebra the cores already expose:
                 single engine fed the canonical interleaving
                 (tests/test_cluster.py).
 
+Sharded workers: a worker (and the template) may be a service built with
+``num_shards > 1`` or a ``mesh``.  The coordinator folds each worker's
+state through its single-device form (`SketchEngine.gather_state`) on the
+template's first device, merges there, and places the merge on the
+template's mesh for its query kinds; `merged_state` returns the
+single-device form.  A sharded worker's state equals an unsharded one's,
+so the merge and the answers do too.
+
 Merge cadence: the coordinator folds worker snapshots into a cached merged
 state whenever the summed worker commit count has advanced by
 ``merge_every`` since the last merge (checked at submit/flush time), and
@@ -193,11 +201,6 @@ class ClusterService(_BatchedQueryMixin):
         self._make_worker = make_worker
         self.workers: List[SketchEngine] = [make_worker(w)
                                             for w in range(num_workers)]
-        if any(getattr(e, "num_shards", 1) > 1
-               for e in (*self.workers, self._ref)):
-            raise ValueError("cluster workers hold single-device sketches: "
-                             "shard a single service with num_shards or "
-                             "mesh, not a cluster's workers")
         self._merge_every = max(1, int(merge_every))
         self._merge_fn = merge_states
         self._mlock = threading.Lock()
@@ -788,14 +791,17 @@ class ClusterService(_BatchedQueryMixin):
                                        dead=sorted(self._dead),
                                        salvaged=self._salvaged)
         snaps = {w: self.workers[w].snapshot() for w in live}
-        states = [snaps[w][0] for w in live]
+        # sharded workers fold through their single-device form
+        states = [self.workers[w].gather_state(snaps[w][0]) for w in live]
         vers = tuple(-1 if w in self._dead else snaps[w][1]
                      for w in range(len(self.workers)))
         with self._mlock:
             if self._merged_versions == vers and self._merged_epoch == epoch:
                 return self._merged, self._merged_meta, vers
             self._with_retries(None, lambda: faults.fire("cluster.merge"))
-            merged = self._combine(states, live)
+            # the merge is read through the template's query kinds, so it
+            # lies where the template's state does (its mesh, if any)
+            merged = self._ref._place_state(self._combine(states, live))
             meta = dict(self._meta(states) or {})
             meta.update(workers_live=len(live),
                         workers_total=len(self.workers),
@@ -838,8 +844,9 @@ class ClusterService(_BatchedQueryMixin):
         return self._refresh()
 
     def merged_state(self):
-        """The merged sketch alone (see `merged_snapshot`)."""
-        return self.merged_snapshot()[0]
+        """The merged sketch alone, in its single-device form on the
+        coordinator's device (see `merged_snapshot`)."""
+        return self._ref.gather_state(self.merged_snapshot()[0])
 
     def _combine(self, states, live):
         """Subclass hook: fold the live workers' snapshot states into one
@@ -918,9 +925,9 @@ class ClusterRetrievalService(ClusterService):
         super().__init__(
             make_worker or make, num_workers, merge_every,
             lambda states: functools.reduce(
-                lambda a, b: ss.sharded_sann_merge(
-                    a, b, self._ref.params, self._ref.cfg,
-                    self._ref._ctx),
+                lambda a, b: sann.sann_merge(
+                    a, b, ss.gather_params(self._ref.params, self._ref._ctx),
+                    self._ref.cfg),
                 states),
             snapshot_dir=cfg.snapshot_dir,
             batch_queries=cfg.batch_queries,
@@ -1247,7 +1254,7 @@ class ClusterRACEService(ClusterService):
         def density(ctx, qs):
             # counters and n from the *same* merged snapshot; one fp32
             # division by max(n, 1) on the device (no host read of n)
-            st = ctx[0]
+            st = ss.first_shard(ctx[0], self._ref._ctx)
             return kde(ctx, qs) / torch.clamp(st.n.float(), min=1.0)
 
         return {"kde": kde, "density": density}

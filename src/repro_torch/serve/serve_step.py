@@ -222,11 +222,6 @@ def _mlp_block(p, x, cfg: ModelConfig):
     return x + m
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def make_serve_step(cfg: ModelConfig, sketch: bool = False):
     """``serve_step(params, cache, tokens)``: tokens (B, 1) int on the
     cache's device → (logits (B, 1, vocab) fp32, cache with ``length + 1``).
@@ -249,7 +244,8 @@ def make_serve_step(cfg: ModelConfig, sketch: bool = False):
         if views["params"] is not params:
             tree = params.to_dict() if hasattr(params, "to_dict") else params
             views.update(params=params, tree=tree, layers=[
-                _layer(tree["blocks"], i) for i in range(cfg.n_layers)])
+                model_lib.layer_params(tree["blocks"], i)
+                for i in range(cfg.n_layers)])
         tree = views["tree"]
         sigs = cache.get("block_sigs") if sketch else None
         x = layers.embed(tree["embedding"], tokens)

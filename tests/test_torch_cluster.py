@@ -16,6 +16,8 @@ reference's jitted functions compile once.  Then:
   service over the whole stream, SW-AKDE's estimates equal one service's
   while nothing has expired, and S-ANN equals the port's `sann_merge` of
   its workers' states;
+* a cluster whose workers are each sharded over two CPU entries merges
+  and answers as the reference's cluster over single-device workers;
 * a durable cluster directory written by either package is recovered by
   the other to the same merged state;
 * a worker killed through the ``faults`` sites (its commit and its
@@ -35,6 +37,7 @@ from repro.serve.retrieval import RetrievalConfig as JRetrCfg
 from repro.serve.retrieval import RetrievalService as JRetr
 from repro_torch import convert
 from repro_torch.core import sann
+from repro_torch.parallel.sharding import Mesh
 from repro_torch.persist import faults
 from repro_torch.serve import cluster
 from repro_torch.serve.kde_service import KDEService, KDEServiceConfig
@@ -176,6 +179,35 @@ def test_cluster_matches_reference(kind):
         _assert_answers(kind, getattr(port, second)(qs),
                         getattr(ref, second)(qs))
         single.close()
+    port.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_cluster_of_sharded_workers_matches_reference(kind):
+    """K = 2 workers, each sharded over a two-entry CPU mesh: the merged
+    state (folded through each worker's single-device form) equals the
+    reference's cluster over single-device workers fed the same chunks, bit
+    for bit, and so do the answers read through the sharded template."""
+    K = 2
+    data = _balanced(K, 4 * CHUNK, seed=5)
+    port = _port(kind, K, mesh=Mesh(("cpu", "cpu")))
+    assert all(w.num_shards == 2 for w in port.workers)
+    ref = _ref(kind, K)
+    port.ingest(data)
+    ref.ingest(data)
+    assert_state_equal(port.merged_state(), ref.merged_state())
+    qs = grid_data(2 * QB - 3, D, seed=9) + np.float32(1 / 32)
+    _assert_answers(kind, port.query(qs), ref.query(qs))
+    if kind == "retrieval":
+        ids, d = port.query_topk(qs)
+        rids, rd = ref.query_topk(qs)
+        np.testing.assert_array_equal(ids, np.asarray(rids))
+        np.testing.assert_allclose(d, np.asarray(rd), rtol=RTOL, atol=ATOL)
+    else:
+        second = "kde" if kind == "race" else "density"
+        _assert_answers(kind, getattr(port, second)(qs),
+                        getattr(ref, second)(qs))
     port.close()
     ref.close()
 

@@ -27,7 +27,10 @@ the flip rule.  `batch_score_topk_gather` matches the plain gather + top-k
 with -1 ids, ties across the edges of its 512-candidate chunks, unaligned
 rows, k = 1 and 64, and gives the `(B, M, d)` entry's bits; `race_hist`
 stores every bin in one launch (one code a row, codes out of range, a
-ragged batch, an empty batch, W wide enough for bin tiles).
+ragged batch, an empty batch, W wide enough for bin tiles).  The training
+path: the flash attention `Function` against autograd through a dense
+masked softmax, the drift monitor's one chunk a batch against the
+per-example SW-AKDE updates, and a train step that repeats bit for bit.
 """
 import pytest
 import torch
@@ -1024,3 +1027,93 @@ def test_shards_on_four_cards_match_one_card_repeated(dev):
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards")
     _sharded_case(tuple(torch.device("cuda", i) for i in range(4)))
+
+
+# ---------------------------------------------------------------------------
+# the training path: flash attention, the drift monitor, the train step
+# ---------------------------------------------------------------------------
+
+def _dense_attention(q, k, v, window, softcap):
+    G = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (96, 0.0), (96, 30.0)])
+def test_flash_function_matches_dense_attention_on_the_card(dev, window, softcap):
+    """fp32 (TF32 off): output and gradients within 2e-5 of the largest
+    value of autograd through one dense masked softmax (sums in another
+    order); GQA 8 / 2, blocks of 64 over S = 256."""
+    from repro_torch.models import flash
+    g = torch.Generator(device=dev).manual_seed(window)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev)
+    q, k, v, go = mk(2, 256, 8, 64), mk(2, 256, 2, 64), mk(2, 256, 2, 64), mk(2, 256, 8, 64)
+    res = []
+    for fn in (lambda a, b, c: flash.flash_attention(
+                   a, b, c, window=window, softcap=softcap, block_q=64, block_k=64),
+               lambda a, b, c: _dense_attention(a, b, c, window, softcap)):
+        a, b, c = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(a, b, c)
+        o.backward(go)
+        res.append((o.detach(), a.grad, b.grad, c.grad))
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2e-5 * float(want.abs().max()))
+
+
+def test_drift_monitor_chunk_matches_per_example_on_the_card(dev):
+    """The monitor's one chunk a batch (one `srp_hash` and one
+    `swakde_segment_pass` launch) against `swakde_update` one example at a
+    time and `swakde_query` on the card: the same state bit for bit and the
+    same densities."""
+    from repro_torch.core import swakde
+    from repro_torch.data import pipeline
+    dcfg = pipeline.DataConfig(vocab=2048, batch=3, seq=64, seed=4,
+                               drift_window=32, drift_width=64)
+    mon = pipeline.DriftMonitor(dcfg, dev)
+    state = swakde.swakde_init(mon.cfg, dev)
+    stream = pipeline.TokenStream(dcfg, drift_at=10)
+    for i in range(16):
+        toks = stream.next_batch()
+        emb = torch.from_numpy(mon.embed(toks).astype("float32")).to(dev)
+        want = float(swakde.swakde_query(state, mon.params, emb.mean(0), mon.cfg))
+        for x in emb:
+            state = swakde.swakde_update(state, mon.params, x, mon.cfg)
+        before = dict(ops.LAUNCHES)
+        got = mon.observe(toks)
+        assert {k: ops.LAUNCHES[k] - before[k]
+                for k in ("srp_hash", "swakde_segment_pass")} == \
+            {"srp_hash": 1, "swakde_segment_pass": 1}
+        assert got["density"] == want, i
+        for f in state._fields:
+            assert torch.equal(getattr(mon.state, f), getattr(state, f)), (i, f)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_step_repeats_bit_for_bit_on_the_card(dev, dtype):
+    """Two runs of two AdamW steps from one seed give the same parameters
+    and optimizer state bit for bit (the embedding's backward included:
+    the batches repeat tokens)."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.configs import gemma3_4b
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step
+    cfg = dataclasses.replace(gemma3_4b.smoke(), n_layers=3, param_dtype=dtype)
+    tokens = torch.randint(0, 40, (4, 128), generator=torch.Generator().manual_seed(5))
+    runs = []
+    for _ in range(2):
+        step, init = train_step.make_train_step(cfg, adam.adamw(lr=1e-3))
+        state = init(torch.Generator(device=dev).manual_seed(6), dev)
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens.to(dev)})
+        runs.append(tree_leaves(state))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

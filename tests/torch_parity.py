@@ -5,11 +5,15 @@ Reference objects cross to the port as dicts of numpy arrays
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.configs import gemma3_4b as jgemma
+from repro.configs import qwen3_4b as jqwen
 from repro.core import lsh as jlsh
+from repro.train import train_step as jts
 
 # batch_score_topk: fp32 sums in another order than the reference's.
 RTOL, ATOL = 1e-5, 1e-6
@@ -103,3 +107,113 @@ def port_params(ref_params, device="cpu"):
     """The reference's params as the port's, on ``device``."""
     from repro_torch import convert
     return convert.params_from_numpy(fields(ref_params), device)
+
+
+# ---------------------------------------------------------------------------
+# The language model's training path (tests/test_torch_{flash,model,train}.py)
+# ---------------------------------------------------------------------------
+
+# The reference's functions compile at XLA's lowest backend optimisation
+# level and with its older loop emitters, which compile a train step in
+# 40% of the time (the shapes are tiny, so compiling dominates); XLA keeps
+# IEEE semantics there, but does not contract ``a * x + y`` into one
+# multiply-add as it does at its default level, so optimizer updates
+# compile by default.
+XLA_FAST = {"xla_backend_optimization_level": 0,
+            "xla_llvm_disable_expensive_passes": True,
+            "xla_cpu_use_fusion_emitters": False}
+GEMMA_2L = dataclasses.replace(jgemma.smoke(), n_layers=2,
+                               param_dtype="float32")
+QWEN = dataclasses.replace(jqwen.smoke(), param_dtype="float32")
+LM_B, LM_S = 2, 64
+
+
+def fast_jit(fn):
+    """``jax.jit(fn)`` compiled once per input signature with `XLA_FAST`."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        key = (tree, tuple((np.shape(x), jnp.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(compiler_options=XLA_FAST)
+        return compiled[key](*args)
+
+    return call
+
+
+def port_model_cfg(cfg):
+    """The port's `ModelConfig` with a reference config's fields."""
+    from repro_torch.configs.base import ModelConfig
+    return ModelConfig(**dataclasses.asdict(cfg))
+
+
+def f32(x) -> np.ndarray:
+    """A tensor (bfloat16 included) or array as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float()
+    return np.asarray(np_(x), np.float32)
+
+
+def assert_rel(got, want, tol):
+    """Every element within ``tol`` times the largest ``|want|``."""
+    got, want = f32(got), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(float(np.abs(want).max()), 1e-30))
+
+
+def lm_tree_np(cfg, seed: int) -> dict:
+    """The reference's parameter tree as numpy: the port's `init_params`
+    shapes (the reference's names and layout) with values drawn at the
+    reference's distributions, norm weights 0.1 * normal (the reference
+    starts them at 0) so their ``1 + w`` scale matters.  (The reference's
+    own ``init_model`` compiles for seconds.)"""
+    from repro_torch.models import model as tmodel
+    like = tmodel.init_params(port_model_cfg(cfg),
+                              torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(seed)
+    dt = jnp.bfloat16 if cfg.param_dtype == "bfloat16" else np.float32
+
+    def draw(name, t):
+        if name.startswith("ln") or name.endswith("_norm"):
+            x = 0.1 * rng.normal(size=t.shape)
+        elif name == "embed":
+            x = 0.02 * rng.normal(size=t.shape)
+        else:
+            x = rng.normal(size=t.shape) / np.sqrt(t.shape[-2])
+        return np.asarray(x.astype(np.float32), dt)
+
+    def walk(d):
+        return {k: walk(v) if isinstance(v, dict) else draw(k, v)
+                for k, v in d.items()}
+
+    return walk(like)
+
+
+def flat(tree) -> dict:
+    """``{"a/b/c": float32 numpy}`` of a nested dict (tensors or numpy)."""
+    from repro_torch.checkpoint import checkpoint as tckpt
+    return {k: f32(v) for k, v in tckpt._flatten(tree)}
+
+
+def lm_tokens(cfg, seed, b=LM_B, s=LM_S):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)
+
+
+_JLOSS_GRAD: dict = {}
+
+
+def jloss_grad(cfg):
+    """The reference's ``(metrics, grads)`` of ``loss_fn``, compiled once a
+    config."""
+    if cfg not in _JLOSS_GRAD:
+        ctx = jts.make_ctx(None)
+
+        def f(params, tokens):
+            (_, m), g = jax.value_and_grad(
+                lambda p: jts.loss_fn(p, cfg, {"tokens": tokens}, ctx),
+                has_aux=True)(params)
+            return m, g
+        _JLOSS_GRAD[cfg] = fast_jit(f)
+    return _JLOSS_GRAD[cfg]
