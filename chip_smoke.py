@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]            # one card, every phase
     python3 chip_smoke.py --cards 4             # the sharding phase on four
     python3 chip_smoke.py --only train          # the training phase alone
+    python3 chip_smoke.py --only lm_families    # the other families' decode
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``), then drives the main path through the entry points a
@@ -15,7 +16,7 @@ user calls, at full width:
   token stream, B = 2 x S = 4096 with per-layer remat, through
   ``make_train_step``, the drift monitor (SW-AKDE over the batches'
   embeddings: one ``srp_hash`` and one ``swakde_segment_pass`` launch a
-  step, and no other kernel) before every step, for 6 steps and one
+  step, and no other kernel) before every step, for 3 steps and one
   profiled step; the monitor's codes against the CPU under the flip rule
   and its state against a CPU twin.  Then, at full width with the depth
   cut to 2 layers: the fp32 step's loss, gradients and AdamW update
@@ -26,6 +27,27 @@ user calls, at full width:
   heads (global and 1024-window layers, fp32), the embedding gather's two
   backwards run twice and timed, and attention forward + backward against
   ``scaled_dot_product_attention`` as a yardstick;
+* **the other model families' batched decode** (``lm_families``, next, on
+  a card that holds nothing else, one configuration at a time):
+  deepseek-moe-16b (28 layers, 64 experts top-6 + 2 shared),
+  deepseek-v3-671b (MLA, 256 experts top-8; cut to 5 of 61 layers: 3 dense
+  + 2 MoE), zamba2-2.7b (54 Mamba2 layers in 9 groups + the shared
+  attention block), xlstm-125m (6 mLSTM/sLSTM pairs), whisper-large-v3 (32
+  + 32 layers; ``encode_cross_cache`` over 1500 synthetic frame embeddings,
+  the stub frontend's input) and internvl2-76b (cut to 36 of 80 layers,
+  sketch attention on, so every layer runs ``sketch_decode_attn`` at G =
+  8, dh = 128), each at its published width in bf16 with random weights
+  from the seed: B = 4 requests, 128 prompt tokens fed one a step, then 64
+  greedy tokens over a 4096-token cache, through ``init_model`` →
+  ``init_cache`` → ``make_serve_step``.  Logits finite and greedy ids in
+  range every step, and one ``sketch_decode_attn`` launch a layer a step
+  for internvl2 (its kernel also held against its plain version at that
+  shape); step times, tokens/s, peak memory and one profiled step each.
+  Then each at full width with its depth cut to its family's smallest unit
+  in fp32: card against the CPU's plain path over 8 steps (logits, every
+  cache leaf, MoE expert ids but for counted near ties; deepseek-v3's
+  experts come to the CPU only where a step routes), and bf16 against
+  fp32 on the card (logit cosine);
 * **S-ANN at SIFT1M scale** (ann-benchmarks ``sift-128-euclidean``: 1 000 000
   base vectors, 10 000 queries, d = 128; synthetic SIFT-like data drawn on
   the device): ``sann_insert_chunked`` in chunks of 4096, then
@@ -48,7 +70,7 @@ user calls, at full width:
 * **sketch-gated LM decode**, gemma3-4b at its published width and depth in
   bf16 with random weights from the seed (``init_model`` →
   ``init_cache(sketch=True)`` → ``make_serve_step(sketch=True)``): 4
-  requests of 512 prompt tokens fed one a step, then 512 greedy tokens,
+  requests of 384 prompt tokens fed one a step, then 192 greedy tokens,
   over a 4096-token cache; the five global layers' attention is the
   ``sketch_decode_attn`` kernel.  Then B = 1 over a 131 072-token cache
   whose block signatures are sparse (8 steps from length 131 000), and the
@@ -70,21 +92,23 @@ user calls, at full width:
   ``sann_table_scatter`` must launch there;
 * **multi-tenant fleets** (``TenantFleet``), fed mixed chunks of 4096 rows
   whose tenants are Zipf (s = 1.1), one chunk all one tenant's: RACE (SRP,
-  news width, 1 048 576 points) in 256 hot slots over 1024 tenants,
+  news width, 524 288 points) in 256 hot slots over 1024 tenants,
   spilling and reactivating, also durable and recovered; SW-AKDE
   (p-stable, eps 0.1, window 8192 a tenant, 1 048 576 points) over 256
-  tenants; S-ANN (SIFT shape, n_max 65 536 a tenant, 65 536 points) in 64
+  tenants; S-ANN (SIFT shape, n_max 65 536 a tenant, 24 576 points) in 64
   hot slots over 72 tenants, then a 2048-query block of top-50 and (c, r)
   queries.  Every tenant's row must equal its sub-stream through the
   single-sketch core loop on the card with the fleet's codes and keys, and
   every answer its own sketch's; each kind at T = 8 (re-run on the CPU)
   and T = 256 launches each commit kernel once an operation;
 * **the in-process merge cluster** at K = 1, 2 and 4 workers on the card:
-  ``ClusterRetrievalService`` (SIFT1M shape; the merge against
+  ``ClusterRetrievalService`` (SIFT1M shape, the stream's first 524 288
+  points; the merge against
   ``sann_merge`` of the workers and the canonical interleaving rule
   replayed on the CPU), ``ClusterKDEService`` (news shape, eps 0.01,
   worker windows 65 536 / K, nothing expiring: answers equal one service's)
-  and ``ClusterRACEService`` (equal to one service over the stream), a
+  and ``ClusterRACEService`` (equal to one service over the stream's
+  first 524 288 points), a
   durable cluster recovered, and a worker killed at a ``faults`` site and
   salvaged;
 * **the RPC cluster** (``repro_torch.net``): the same clusters with each
@@ -127,7 +151,7 @@ sequence it replaced; for the S-ANN scorer's gather entry, beside the
 SW-AKDE commit also runs past 32 EH slots at full width over chunks that
 expire: eps 0.01 (52 slots, the cell in shared memory), bit-identical to
 the CPU plain path on every row, and eps 1e-4 (5002 slots, a 422 160-byte
-cell in global memory), bit-identical to it on rows 0-1; ``race_hist``
+cell in global memory), bit-identical to it on row 0; ``race_hist``
 must run as one device op a call.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, and last
@@ -139,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import shutil
@@ -164,19 +189,52 @@ BATCH_KDE_BATCHES, BATCH_KDE_WINDOW = 64, 16
 # the SW-AKDE commit past 32 EH slots: eps 0.01 (52 slots), chunks on the
 # card before the CPU cross-check (16 fill the 65 536 window) and in it;
 # eps 1e-4 (5002 slots, the cell in global memory), its CPU cross-check on
-# rows 0-1 only
-SLOTS_EPS, SLOTS_WARM, SLOTS_CROSS = 0.01, 16, 4
-BIG_CELL_EPS, BIG_CELL_CROSS, BIG_CELL_ROWS = 1e-4, 2, 2
+# row 0 only
+SLOTS_EPS, SLOTS_WARM, SLOTS_CROSS = 0.01, 16, 2
+BIG_CELL_EPS, BIG_CELL_CROSS, BIG_CELL_ROWS = 1e-4, 1, 1
 RTOL, ATOL = 1e-5, 1e-6          # fp32 summation order (scorers)
 SRP_FLIP_TOL = 1e-5              # |y| <= tol * |x| * |proj column| may flip
 # LM decode (gemma3-4b at its published width): lm_serve, lm_long, and the
 # depth-cut fp32 cross-check against the CPU
 LM_BLOCK = 512                   # SKETCH_BLOCK
-LM_B, LM_S, LM_PROMPT, LM_GEN = 4, 4096, 512, 512
+LM_B, LM_S, LM_PROMPT, LM_GEN = 4, 4096, 384, 192    # 576 steps: two sketch blocks
 LM_LONG_S, LM_LONG_LEN, LM_LONG_STEPS = 131_072, 131_000, 8
 LM_CROSS_LAYERS = 6              # one 5:1 local:global period
 SDA_RTOL, SDA_ATOL = 2e-5, 2e-5  # fp32 sums in another order (the reference
                                  # kernel's own bound, tests/test_kernels.py)
+# lm_families: every other family's batched decode at its published width,
+# random bf16 weights from the seed, one configuration at a time on a card
+# that holds nothing else: (arch, layers run or None for all, sketch).
+# deepseek-v3 is cut to 5 of 61 layers (3 dense + 2 MoE/MLA: 56.9 GB; six
+# layers, ~80 GB, do not fit), internvl2 to 36 of 80 (~66 GB)
+FAMILY_RUNS = (("deepseek-moe-16b", None, False),
+               ("deepseek-v3-671b", 5, False),
+               ("zamba2-2.7b", None, False),
+               ("xlstm-125m", None, False),
+               ("whisper-large-v3", None, False),
+               ("internvl2-76b", 36, True))
+FAM_B, FAM_S, FAM_PROMPT, FAM_GEN = 4, 4096, 128, 64
+# the fp32 card-vs-CPU check at full width, depth cut to the family's
+# smallest unit (moe: 1 dense + 1 MoE layer; hybrid: one group of 6 Mamba2
+# layers and the shared block; encdec: 2 encoder + 2 decoder layers; vlm: 2
+# layers; ssm: all 12 layers, 0.7 GB), B = 2 over 8 teacher-forced steps:
+# logits within FAM_LOGIT_TOL of their largest, every float cache leaf
+# within FAM_CACHE_TOL of its largest (fp32 sums in another order: gemma3-4b's
+# 6 fp32 layers measured 1.9e-6 and 1.3e-6; the recurrent states and the
+# softmaxes amplify), MoE routes equal except where two experts'
+# probabilities lie within FAM_ROUTE_TIE of each other (counted; the
+# comparison stops at such a step); whisper's cross cache, bfloat16 in both
+# (the reference stores it so), within one bf16 ulp of its largest value,
+# FAM_BF16_LEAF_TOL (an fp32 value near a rounding boundary rounds either
+# way); the bf16 decode against the fp32 one on the card over the same
+# tokens: every step's logit cosine >= FAM_BF16_COSINE
+FAM_CROSS_B, FAM_CROSS_S, FAM_CROSS_STEPS = 2, 1024, 8
+FAM_CROSS_LEN = 600              # internvl2's injected start (two sketch blocks)
+FAM_LOGIT_TOL, FAM_CACHE_TOL, FAM_ROUTE_TIE = 1e-4, 1e-4, 1e-5
+FAM_BF16_COSINE = 0.99
+FAM_BF16_LEAF_TOL = 2.0 ** -7
+# the leaves the reference keeps in float32 whatever the parameter dtype
+FP32_LEAVES = ("router", "A_log", "D", "dt_bias", "b_if", "b")
 
 # the services phase: rows a producer hands `ingest_async` per call (16
 # chunks), the snapshot cadence, closed-loop clients, rows the RACE delete
@@ -190,18 +248,22 @@ SERVICE_KERNELS = ("srp_hash", "race_hist", "batch_score_topk",
 # chunk all one tenant's; RACE 256 hot slots over 1024 tenants, SW-AKDE 256
 # tenants in 256 slots (window 8192 a tenant), S-ANN 64 hot slots over 72
 # tenants (n_max 65 536 a tenant: 58 MB of tables each); each kind also at
-# T = 8 (8 chunks, re-run on the CPU) and T = 256 (2 chunks)
-FLEET_ZIPF_S, FLEET_TENANTS, FLEET_HOT, FLEET_HOT_CHUNK = 1.1, 1024, 256, 10
-FLEET_RACE_N = FLEET_SW_N = KDE_N
+# T = 8 (4 chunks, re-run on the CPU) and T = 256 (2 chunks)
+FLEET_ZIPF_S, FLEET_TENANTS, FLEET_HOT, FLEET_HOT_CHUNK = 1.1, 1024, 256, 4
+FLEET_SW_N = KDE_N
+FLEET_RACE_N = KDE_N // 2
 FLEET_SW_TENANTS, FLEET_SW_WINDOW = 256, 8192
 FLEET_SANN_TENANTS, FLEET_SANN_HOT = 72, 64
-FLEET_SANN_NMAX = FLEET_SANN_N = 65_536
-FLEET_GATE_T, FLEET_GATE_CHUNKS = (8, 256), {8: 8, 256: 2}
+FLEET_SANN_NMAX = 65_536
+FLEET_SANN_N = 6 * CHUNK             # reaches the all-one-tenant chunk
+FLEET_GATE_T, FLEET_GATE_CHUNKS = (8, 256), {8: 4, 256: 2}
 FLEET_DURABLE_CHUNKS, FLEET_SNAPSHOT_EVERY, FLEET_QUERIES = 4, 4, 2048
 # the cluster phase: K workers on the one card; the KDE stream stays under
 # every worker's window (65 536 / K) so nothing expires
 CLUSTER_WORKERS = (1, 2, 4)
 CLUSTER_KDE_WINDOW, CLUSTER_KDE_N, CLUSTER_DURABLE_N = 65_536, 61_440, 262_144
+# the clusters' RACE and S-ANN streams: the first half of each
+CLUSTER_RACE_N, CLUSTER_SANN_N = KDE_N // 2, SANN_N // 2
 # the rpc_cluster phase: the cluster phase's workloads, each worker a spawned
 # process; S-ANN at n_max 250 000 a worker, so that a worker's snapshot
 # (164.5 MB) fits the wire protocol's 256 MiB frame (at 1 000 000 it is 434
@@ -232,8 +294,8 @@ SHARD_FLEET_T = {"race": 256, "swakde": 256, "sann": 64}
 # parameter may differ from the CPU's by more than TRAIN_PARAM_TOL (and a
 # rounding) only by what its two gradients predict through the step's
 # formula
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 4096, 6, 3e-4
-TRAIN_CROSS_LAYERS, TRAIN_CROSS_S, TRAIN_RESUME_S = 2, 256, 512
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 4096, 3, 3e-4
+TRAIN_CROSS_LAYERS, TRAIN_CROSS_S, TRAIN_RESUME_S = 2, 128, 512
 FLASH_TOL, TRAIN_PARAM_TOL = 2e-5, 1e-7
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -1190,17 +1252,7 @@ def phase_lm_cross_check(seed, device, n_layers=LM_CROSS_LAYERS, B=2,
     for name in ("k", "v"):
         got, want = caches[device][name].cpu(), caches["cpu"][name]
         cache_err[name] = float((got - want).abs().max() / want.abs().max())
-    # signature bits may differ only where a new key's projection is at the
-    # sign boundary
-    new_k = caches["cpu"]["k"][:, :, length:length + steps]
-    L, _, T, Hkv, dh = new_k.shape
-    mean = serve_step._head_mean(new_k.reshape(L * B, T, Hkv, dh)).reshape(L, B, T, dh)
-    near = serve_step.sig_near_boundary(mean, serve_step._sig_proj(dh))
-    near_blk = torch.zeros_like(caches["cpu"]["block_sigs"])
-    for t in range(steps):
-        near_blk[:, :, (length + t) // LM_BLOCK] |= near[:, :, t]
-    diff = caches[device]["block_sigs"].cpu() != caches["cpu"]["block_sigs"]
-    flips, unexplained = int(diff.sum()), int((diff & ~near_blk).sum())
+    flips, unexplained = _sig_flips(caches[device], caches["cpu"], length, steps)
     emit({"phase": "lm_cross_check", "arch": cfg.arch_id, "dtype": "float32",
           "layers": [n_layers, lm_config().n_layers], "d_model": cfg.d_model,
           "vocab": cfg.vocab, "B": B, "s_max": s_max, "start_length": length,
@@ -1217,6 +1269,23 @@ def phase_lm_cross_check(seed, device, n_layers=LM_CROSS_LAYERS, B=2,
     if not pruned:
         fail("lm_cross_check: the injected state pruned nothing")
     del params, params_cpu, caches
+
+
+def _sig_flips(cache_dev, cache_cpu, length, steps):
+    """(signature bits that differ between the card's cache and the CPU's,
+    those of them not at a sign boundary): a bit may differ only where one
+    of the ``steps`` new keys' projections is at the boundary."""
+    import torch
+    from repro_torch.serve import serve_step
+    new_k = cache_cpu["k"][:, :, length:length + steps]
+    L, B, T, Hkv, dh = new_k.shape
+    mean = serve_step._head_mean(new_k.reshape(L * B, T, Hkv, dh)).reshape(L, B, T, dh)
+    near = serve_step.sig_near_boundary(mean, serve_step._sig_proj(dh))
+    near_blk = torch.zeros_like(cache_cpu["block_sigs"])
+    for t in range(steps):
+        near_blk[:, :, (length + t) // LM_BLOCK] |= near[:, :, t]
+    diff = cache_dev["block_sigs"].cpu() != cache_cpu["block_sigs"]
+    return int(diff.sum()), int((diff & ~near_blk).sum())
 
 
 def _tree_to(tree, device):
@@ -1900,6 +1969,424 @@ def phase_train(seed, device):
 
 
 # --------------------------------------------------------------------------
+# phase 3f: the other model families' batched decode (lm_families)
+# --------------------------------------------------------------------------
+
+def family_config(arch, n_layers=None, dtype="bfloat16"):
+    """``arch`` at its published width (`configs/<arch>.py`) in ``dtype``;
+    ``n_layers`` cuts the depth, keeping the family's shape: a MoE stack
+    keeps at least one MoE layer after its dense ones, an encoder-decoder
+    cuts both stacks."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get_config(arch), param_dtype=dtype)
+    if n_layers is None:
+        return cfg
+    cut = dict(n_layers=n_layers)
+    if cfg.family == "moe":
+        cut["n_dense_layers"] = min(cfg.n_dense_layers, n_layers - 1)
+    if cfg.family == "encdec":
+        cut["n_enc_layers"] = n_layers
+    return dataclasses.replace(cfg, **cut)
+
+
+def cross_layers(cfg):
+    """The fp32 cross-check's depth: the family's smallest unit."""
+    return {"moe": 2, "hybrid": cfg.attn_every, "ssm": None, "encdec": 2,
+            "vlm": 2}[cfg.family]
+
+
+def _weight_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def _frames(cfg, B, gen, device):
+    """The stub audio frontend's output: ``enc_frames`` synthetic frame
+    embeddings a request, float32."""
+    import torch
+    return torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def family_decode(seed, arch, n_layers, sketch, device, smi):
+    """``arch`` in bf16 at its published width (depth ``n_layers`` or all),
+    random weights from the seed: ``init_model`` → ``init_cache`` →
+    (whisper: ``encode_cross_cache`` over the stub frontend's frames) →
+    ``make_serve_step``; FAM_B requests of FAM_PROMPT prompt tokens fed one
+    a step, then FAM_GEN greedy tokens, over an FAM_S-token cache.  Gates:
+    finite logits and greedy ids in range at every step; with sketch on,
+    one `sketch_decode_attn` launch a layer a step and no other kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = family_config(arch, n_layers)
+    full = family_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 40)
+    t0 = time.perf_counter()
+    params = model.init_model(cfg, gen, device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    cache = kv_cache.init_cache(cfg, FAM_B, FAM_S, sketch=sketch, device=device)
+    encode_s = None
+    if cfg.family == "encdec":
+        frames = _frames(cfg, FAM_B, gen, device)
+        sync(device)
+        t0 = time.perf_counter()
+        cache = serve_step.encode_cross_cache(params, cfg, frames, cache)
+        sync(device)
+        encode_s = time.perf_counter() - t0
+        if not all(bool(torch.isfinite(cache[n]).all()) for n in ("xk", "xv")):
+            fail(f"lm_families {arch}: the cross cache is not finite")
+    step = serve_step.make_serve_step(cfg, sketch=sketch)
+    prompts = torch.from_numpy(np.random.default_rng(seed + 42).integers(
+        0, cfg.vocab, (FAM_B, FAM_PROMPT))).to(device)
+    n_steps = FAM_PROMPT + FAM_GEN
+    zero = lambda: torch.zeros((), dtype=torch.int64, device=device)
+    nonfinite, bad_ids, live_sum = zero(), zero(), zero()
+    times = []
+    sync(device)
+    ops.reset_launches()
+    t_all = time.perf_counter()
+    tok = prompts[:, :1]
+    for t in range(n_steps):
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok)
+        nonfinite += (~torch.isfinite(logits)).sum()
+        if t + 1 < FAM_PROMPT:
+            tok = prompts[:, t + 1:t + 2]
+        else:
+            tok = logits.argmax(-1)
+            bad_ids += ((tok < 0) | (tok >= cfg.vocab)).sum()
+        if sketch:
+            live_sum += torch.stack([n for _, n in step.last_live]).sum()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    launches = dict(ops.LAUNCHES)
+    want = {name: 0 for name in launches}
+    if sketch:
+        want["sketch_decode_attn"] = cfg.n_layers * n_steps
+    if launches != want:
+        fail(f"lm_families {arch}: launches {launches}, expected {want}")
+    if int(nonfinite) or int(bad_ids):
+        fail(f"lm_families {arch}: {int(nonfinite)} non-finite logits, "
+             f"{int(bad_ids)} greedy ids out of range")
+    if logits.shape != (FAM_B, 1, cfg.vocab) or cache["length"] != n_steps:
+        fail(f"lm_families {arch}: logits {tuple(logits.shape)}, "
+             f"length {cache['length']}")
+    peak = torch.cuda.max_memory_allocated()
+    holder = {"cache": cache, "tok": tok}
+
+    def one_step():
+        lg, holder["cache"] = step(params, holder["cache"], holder["tok"])
+        holder["tok"] = lg.argmax(-1)
+
+    prof = profile_window(f"lm_families_{arch}_decode_step", one_step, device)
+    ms = sorted(x * 1e3 for x in times[1:])
+    row = {"phase": "lm_families", "arch": arch, "family": cfg.family,
+           "dtype": cfg.param_dtype, "nvidia_smi": smi,
+           "layers_run": [cfg.n_layers, full.n_layers],
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "sketch": sketch,
+           "B": FAM_B, "s_max": FAM_S, "prompt_tokens": FAM_PROMPT,
+           "generated_tokens": FAM_GEN, "steps": n_steps,
+           "weight_bytes": _weight_bytes(params),
+           "cache_bytes": kv_cache.cache_bytes(holder["cache"]),
+           "peak_memory_bytes": peak, "init_s": init_s, "encode_s": encode_s,
+           "first_step_ms": times[0] * 1e3, "step_ms_median": ms[len(ms) // 2],
+           "step_ms_p90": ms[int(0.9 * len(ms))], "wall_s": wall,
+           "tokens_per_s": FAM_B * n_steps / wall,
+           "device_busy_share": prof["device_busy_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_ops": prof["device_ops"],
+           "top_device_ops": prof["top_device_ops"][:5],
+           "launches": launches}
+    if cfg.family == "moe":
+        row["experts"] = [cfg.n_experts, cfg.moe_topk, cfg.n_shared_experts]
+    kernel_row = None
+    if sketch:
+        row["mean_live_blocks_per_global_layer"] = float(live_sum) / (
+            cfg.n_layers * FAM_B * n_steps)
+        row["in_range_blocks_last_step"] = -(-n_steps // LM_BLOCK)
+        # the kernel at this path's shape: the last layer's cache and the
+        # live lists of the last step, a random q
+        Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        c = holder["cache"]
+        ids, n_live = step.last_live[-1]
+        q = torch.randn((FAM_B, Hkv, cfg.n_heads // Hkv, dh), generator=gen,
+                        device=device).to(c["k"].dtype)
+        kernel_row = sda_row(f"lm_families_{arch}", q, c["k"][-1], c["v"][-1],
+                             ids, n_live, c["length"], 0.0, device)
+    emit(row)
+    del params, cache, holder, step
+    torch.cuda.empty_cache()
+    return row, kernel_row
+
+
+class _RouteLog:
+    """Records, while installed, the expert ids and router probabilities of
+    every MoE layer's routing (`models.moe._route`), on the CPU."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = orig = moe._route
+
+        def route(router_w, x_flat, topk):
+            w, idx, aux = orig(router_w, x_flat, topk)
+            probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
+            self.calls.append((idx.cpu(), probs.cpu()))
+            return w, idx, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+
+def _route_ties(card, cpu):
+    """(mismatched route entries, those of them that are not near ties)
+    between two steps' route logs: a mismatch is a near tie where the two
+    experts' CPU probabilities lie within FAM_ROUTE_TIE of the larger."""
+    mism = unexplained = 0
+    for (ia, _), (ib, pb) in zip(card, cpu):
+        rows, cols = (ia != ib).nonzero(as_tuple=True)
+        for t, j in zip(rows.tolist(), cols.tolist()):
+            a, b = float(pb[t, ia[t, j]]), float(pb[t, ib[t, j]])
+            mism += 1
+            unexplained += abs(a - b) > FAM_ROUTE_TIE * max(a, b)
+    return mism, unexplained
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _host_params(params, routes=None, base=None):
+    """The card's fp32 tree on the CPU.  A MoE stack's expert weights come
+    over only for the experts ``routes`` (one route log entry a MoE layer)
+    names, into tensors allocated but not written elsewhere (their pages
+    untouched): the others receive no rows.  ``base`` (returned second) is
+    the tree with the expert leaves still on the card, copied once."""
+    import torch
+
+    def copy(tree, in_moe=False):
+        return {k: copy(v, k == "moe") if isinstance(v, dict) else
+                (v if in_moe and k in EXPERT_LEAVES else v.cpu())
+                for k, v in tree.items()}
+
+    if base is None:        # the MTP head serves training only: left behind
+        base = copy({k: v for k, v in params.items() if k != "mtp"})
+    if "moe_blocks" not in params:
+        return base, base
+    experts = {}
+    for name in EXPERT_LEAVES:
+        src = params["moe_blocks"]["moe"][name]
+        out = torch.empty(src.shape, dtype=src.dtype)
+        for layer, (idx, _) in enumerate(routes or ()):
+            e = torch.unique(idx.reshape(-1))
+            out[layer, e] = src[layer, e.to(src.device)].cpu()
+        experts[name] = out
+    mb = base["moe_blocks"]
+    tree = {**base, "moe_blocks": {**mb, "moe": {**mb["moe"], **experts}}}
+    return tree, base
+
+
+def _leaf_rel(a, b) -> float:
+    """max |a - b| over max |b|, on the CPU in float32."""
+    a, b = a.cpu().float(), b.cpu().float()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+
+
+def family_cross_check(seed, arch, device, smi):
+    """``arch`` at full width in fp32 (TF32 off), depth cut to the
+    family's smallest unit (`cross_layers`), on the card and on the CPU
+    (plain versions) from one tree, one cache (internvl2: the injected
+    state at FAM_CROSS_LEN with sketch on; whisper: each device encodes the
+    same frames) and the same FAM_CROSS_STEPS tokens: logits within
+    FAM_LOGIT_TOL of their largest, every float cache leaf within
+    FAM_CACHE_TOL of its largest, signature bits equal except at sign
+    boundaries and live sets equal, MoE routes equal except at counted near
+    ties.  Then the same tree cast to bf16 (the FP32_LEAVES kept) on the
+    card over the same tokens: each step's logit cosine with the fp32 run's
+    at least FAM_BF16_COSINE."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import model
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = family_config(arch, None, "float32")
+    cfg = family_config(arch, cross_layers(cfg), "float32")
+    sketch = cfg.family == "vlm"
+    B, steps = FAM_CROSS_B, FAM_CROSS_STEPS
+    gen = torch.Generator(device=device).manual_seed(seed + 43)
+    params = model.init_params(cfg, gen, device)
+    tokens = np.random.default_rng(seed + 44).integers(0, cfg.vocab, (B, steps))
+    cpu = torch.device("cpu")
+
+    def fresh_cache(d, c):
+        if sketch:
+            state = injected_lm_state(c, B, FAM_CROSS_S, FAM_CROSS_LEN, seed + 45)
+            cache = convert.lm_cache_from_numpy(state, d)
+            dt = model._dtype(c)
+            return {k: v.to(dt) if k in ("k", "v") else v
+                    for k, v in cache.items()}
+        return kv_cache.init_cache(c, B, FAM_CROSS_S, device=d)
+
+    frames = (_frames(cfg, B, torch.Generator().manual_seed(seed + 46), cpu)
+              if cfg.family == "encdec" else None)
+
+    def start(tree, c, d):
+        cache = fresh_cache(d, c)
+        if frames is not None:
+            cache = serve_step.encode_cross_cache(tree, c, frames.to(d), cache)
+        return cache
+
+    t0 = time.perf_counter()
+    caches = {"card": start(params, cfg, device)}
+    step = serve_step.make_serve_step(cfg, sketch=sketch)
+    host, base = _host_params(params)
+    caches["cpu"] = start(host, cfg, cpu)
+    logits32, logit_err, mism, unexplained, tie_step = [], 0.0, 0, 0, None
+    live_equal, pruned, cpu_s = True, 0, 0.0
+    with _RouteLog() as log:
+        for t in range(steps):
+            tok = torch.from_numpy(tokens[:, t:t + 1])
+            lg, caches["card"] = step(params, caches["card"], tok.to(device))
+            sync(device)
+            card_routes = log.take()
+            live_card = live_sets(step.last_live) if sketch else None
+            if cfg.family == "moe":
+                host, _ = _host_params(params, card_routes, base)
+            t1 = time.perf_counter()
+            lc, caches["cpu"] = step(host, caches["cpu"], tok)
+            cpu_s += time.perf_counter() - t1
+            cpu_routes = log.take()
+            logits32.append(lg)
+            if not torch.isfinite(lg).all():
+                fail(f"lm_families cross-check {arch}: logits not finite")
+            m, u = _route_ties(card_routes, cpu_routes)
+            mism, unexplained = mism + m, unexplained + u
+            if m:
+                tie_step = t
+                break
+            logit_err = max(logit_err, _leaf_rel(lg, lc))
+            if sketch:
+                live_equal &= live_card == live_sets(step.last_live)
+                in_range = -(-(FAM_CROSS_LEN + t + 1) // LM_BLOCK)
+                pruned += sum(len(s) < in_range for layer in live_card
+                              for s in layer)
+    cache_err, bf16_leaf_err, flips = {}, {}, None
+    if tie_step is None:
+        for name, want in caches["cpu"].items():
+            if name in ("length", "block_sigs"):
+                continue
+            err = _leaf_rel(caches["card"][name], want)
+            if want.dtype == torch.bfloat16:    # whisper's cross cache
+                bf16_leaf_err[name] = err
+            else:
+                cache_err[name] = err
+        if sketch:
+            flips = _sig_flips(caches["card"], caches["cpu"], FAM_CROSS_LEN,
+                               steps)
+    card_s = time.perf_counter() - t0 - cpu_s
+    del host, base, caches, step      # the step's views hold fp32 leaves
+    # bf16 on the card over the same tokens
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+
+    def to_bf16(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                to_bf16(v)
+            elif k not in FP32_LEAVES:
+                tree[k] = v.to(torch.bfloat16)
+    to_bf16(params)
+    cache16 = start(params, cfg16, device)
+    step16 = serve_step.make_serve_step(cfg16, sketch=sketch)
+    cosines = []
+    for t, lg32 in enumerate(logits32):
+        tok = torch.from_numpy(tokens[:, t:t + 1]).to(device)
+        lg, cache16 = step16(params, cache16, tok)
+        cosines.append(float(torch.nn.functional.cosine_similarity(
+            lg.reshape(B, -1).double(), lg32.reshape(B, -1).double(),
+            dim=-1).min()))
+    row = {"phase": "lm_families_cross_check", "arch": arch,
+           "nvidia_smi": smi, "family": cfg.family,
+           "layers": [cfg.n_layers, family_config(arch).n_layers],
+           "d_model": cfg.d_model, "B": B, "steps": steps,
+           "sketch": sketch, "max_logit_err_rel": logit_err,
+           "cache_err_rel": cache_err, "tolerance": [FAM_LOGIT_TOL,
+                                                     FAM_CACHE_TOL],
+           "bf16_leaf_err_rel": bf16_leaf_err,
+           "bf16_leaf_tolerance": FAM_BF16_LEAF_TOL,
+           "route_mismatches": mism, "route_mismatches_not_ties": unexplained,
+           "compared_steps": steps if tie_step is None else tie_step,
+           "bf16_logit_cosine_min": min(cosines),
+           "bf16_cosine_bound": FAM_BF16_COSINE,
+           "card_s": card_s, "cpu_s": cpu_s}
+    if sketch:
+        row.update(sig_flips=flips, live_sets_equal=live_equal,
+                   pruned_layer_requests=pruned)
+    emit(row)
+    if unexplained:
+        fail(f"lm_families cross-check {arch}: {unexplained} expert ids "
+             "differ away from a near tie")
+    if logit_err > FAM_LOGIT_TOL or any(e > FAM_CACHE_TOL
+                                        for e in cache_err.values()) \
+            or any(e > FAM_BF16_LEAF_TOL for e in bf16_leaf_err.values()):
+        fail(f"lm_families cross-check {arch}: card and CPU disagree "
+             f"({logit_err}, {cache_err})")
+    if sketch and (flips[1] or not live_equal or not pruned):
+        fail(f"lm_families cross-check {arch}: signatures {flips}, live sets "
+             f"equal {live_equal}, pruned {pruned}")
+    if min(cosines) < FAM_BF16_COSINE:
+        fail(f"lm_families cross-check {arch}: bf16 logit cosine "
+             f"{min(cosines)} < {FAM_BF16_COSINE}")
+    del params, cache16
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_families(seed, device):
+    """Each configuration of FAMILY_RUNS in turn, its weights and cache
+    freed before the next: the bf16 decode at full width, then its fp32
+    card-vs-CPU and bf16-vs-fp32 checks at cut depth.  Returns the launch
+    counts of the decode runs and the kernel row of internvl2's shape."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    launches, kernel_rows = {}, []
+    for arch, n_layers, sketch in FAMILY_RUNS:
+        gc.collect()                   # the last configuration's leaves
+        torch.cuda.empty_cache()
+        row, krow = family_decode(seed, arch, n_layers, sketch, device, smi)
+        for name, n in row["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        if krow is not None:
+            kernel_rows.append(krow)
+        family_cross_check(seed, arch, device, smi)
+    if not launches.get("sketch_decode_attn"):
+        fail("lm_families: sketch_decode_attn was not launched")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel_rows": kernel_rows}
+
+
+# --------------------------------------------------------------------------
 # phase 4: every kernel against its plain version, timed
 # --------------------------------------------------------------------------
 
@@ -2433,8 +2920,7 @@ def check_sketch_decode_attn(serve_run, device):
     with 100 %, 50 % and 10 % of the blocks live, softcap 0 and 50, and
     with no live block (zeros)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref, sketch_decode_attn as sda
+    from repro_torch.kernels import sketch_decode_attn as sda
     cfg = serve_run["cfg"]
     Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // Hkv
@@ -2455,50 +2941,62 @@ def check_sketch_decode_attn(serve_run, device):
             cases.append((f"long_{frac}", k, v, ids, n_live, kv_len, softcap))
     rows = []
     for name, k, v, ids, n_live, kv_len, softcap in cases:
-        B, S = k.shape[:2]
-        q = torch.randn((B, Hkv, G, dh), generator=gen, device=device).to(k.dtype)
-        live = sda.block_mask(ids, n_live, S // LM_BLOCK)
-        got = sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len, LM_BLOCK, softcap)
-        want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, LM_BLOCK, softcap)
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=SDA_RTOL, atol=SDA_ATOL):
-            fail(f"sketch_decode_attn differs from its plain version ({name})")
-        if not bool(live.any()) and bool(got.any()):
-            fail("sketch_decode_attn: an empty live list must give zeros")
-        pos = torch.arange(S, device=device)
-        pos_live = live[:, pos // LM_BLOCK] & (pos < kv_len)[None]     # (B, S)
-        n_pos = int(pos_live.sum())
-        nbytes = (n_pos * Hkv * dh * 2 * k.element_size() + q.numel() * q.element_size()
-                  + got.numel() * 4 + ids.numel() * 4 + n_live.numel() * 4)
-        b_ms, b_by = bound(nbytes, 4.0 * n_pos * Hkv * G * dh)
-        call = lambda: sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
-                                              LM_BLOCK, softcap)
-        library_ms = library_device_ms = library_graph_ms = None
-        if softcap == 0.0 and n_pos:
-            ql = q.reshape(B, Hkv * G, 1, dh)
-            kl, vl = k.transpose(1, 2), v.transpose(1, 2)
-            mask = pos_live[:, None, None, :]
-            sdpa = lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=mask, enable_gqa=True)
-            library_ms = time_ms(sdpa, 10, device)
-            library_device_ms = device_ms_all(sdpa, device, 10)
-            library_graph_ms = graph_ms(sdpa, device, 10)
-        rows.append({
-            "name": "sketch_decode_attn", "case": name,
-            "shape": [B, S, Hkv, G, dh], "kv_len": kv_len, "softcap": softcap,
-            "live_blocks": int(live.sum()), "live_positions": n_pos,
-            "max_abs_err": err, "tolerance": [SDA_RTOL, SDA_ATOL],
-            "ms": time_ms(call, 20, device),
-            "device_ms": device_ms(call, "sketch_decode_attn", device),
-            "graph_ms": graph_ms(call, device),
-            "plain_ms": time_ms(lambda: ref.sketch_decode_attn_ref(
-                q, k, v, live, kv_len, LM_BLOCK, softcap), 3, device),
-            "library_ms": library_ms, "library_device_ms": library_device_ms,
-            "library_graph_ms": library_graph_ms,
-            "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
-                       "over the whole cache",
-            "bound_ms": b_ms, "bound_by": b_by})
+        q = torch.randn((k.shape[0], Hkv, G, dh), generator=gen,
+                        device=device).to(k.dtype)
+        rows.append(sda_row(name, q, k, v, ids, n_live, kv_len, softcap, device))
     return rows
+
+
+def sda_row(name, q, k, v, ids, n_live, kv_len, softcap, device):
+    """One `sketch_decode_attn` case against its plain version on the card
+    (within SDA_ATOL + SDA_RTOL * |plain|), timed beside its plain version
+    and SDPA over the whole cache, with its byte and operation bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, sketch_decode_attn as sda
+    B, S, Hkv, dh = k.shape
+    G = q.shape[2]
+    live = sda.block_mask(ids, n_live, S // LM_BLOCK)
+    got = sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len, LM_BLOCK, softcap)
+    want = ref.sketch_decode_attn_ref(q, k, v, live, kv_len, LM_BLOCK, softcap)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SDA_RTOL, atol=SDA_ATOL):
+        fail(f"sketch_decode_attn differs from its plain version ({name})")
+    if not bool(live.any()) and bool(got.any()):
+        fail("sketch_decode_attn: an empty live list must give zeros")
+    pos = torch.arange(S, device=device)
+    pos_live = live[:, pos // LM_BLOCK] & (pos < kv_len)[None]     # (B, S)
+    n_pos = int(pos_live.sum())
+    nbytes = (n_pos * Hkv * dh * 2 * k.element_size() + q.numel() * q.element_size()
+              + got.numel() * 4 + ids.numel() * 4 + n_live.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * n_pos * Hkv * G * dh)
+    call = lambda: sda.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
+                                          LM_BLOCK, softcap)
+    library_ms = library_device_ms = library_graph_ms = None
+    if softcap == 0.0 and n_pos:
+        ql = q.reshape(B, Hkv * G, 1, dh)
+        kl, vl = k.transpose(1, 2), v.transpose(1, 2)
+        mask = pos_live[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, enable_gqa=True)
+        library_ms = time_ms(sdpa, 10, device)
+        library_device_ms = device_ms_all(sdpa, device, 10)
+        library_graph_ms = graph_ms(sdpa, device, 10)
+    return {
+        "name": "sketch_decode_attn", "case": name,
+        "shape": [B, S, Hkv, G, dh], "kv_len": kv_len, "softcap": softcap,
+        "live_blocks": int(live.sum()), "live_positions": n_pos,
+        "max_abs_err": err, "tolerance": [SDA_RTOL, SDA_ATOL],
+        "ms": time_ms(call, 20, device),
+        "device_ms": device_ms(call, "sketch_decode_attn", device),
+        "graph_ms": graph_ms(call, device),
+        "plain_ms": time_ms(lambda: ref.sketch_decode_attn_ref(
+            q, k, v, live, kv_len, LM_BLOCK, softcap), 3, device),
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+        "library_graph_ms": library_graph_ms,
+        "library": "F.scaled_dot_product_attention(attn_mask, enable_gqa) "
+                   "over the whole cache",
+        "bound_ms": b_ms, "bound_by": b_by}
 
 
 # --------------------------------------------------------------------------
@@ -3202,6 +3700,13 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     from repro_torch.serve import tenant_fleet
 
     out = {"phase": "fleet", "zipf_s": FLEET_ZIPF_S, "chunk": CHUNK}
+    secs_of, clock = {}, [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last lap (each part's, for the time budget)."""
+        now = time.perf_counter()
+        dt, clock[0] = now - clock[0], now
+        return dt
     launches = {k: 0 for k in ops.LAUNCHES}
     checks = []
 
@@ -3262,6 +3767,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     race_fleet = fl
     del oracle, codes
 
+    secs_of["race"] = lap()
     # --- RACE durable: snapshots every 4 operations, spills to disk --------
     with tempfile.TemporaryDirectory() as tmp:
         n_dur = FLEET_DURABLE_CHUNKS * CHUNK
@@ -3290,6 +3796,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
         rec.close()
         del live, rec
 
+    secs_of["race_durable"] = lap()
     # --- SW-AKDE: 256 tenants in 256 slots, window 8192 a tenant -----------
     scfg = tenant_fleet.TenantFleetConfig(
         kind="swakde", dim=KDE_DIM, hot_slots=FLEET_HOT, seed=seed, L=L, W=W,
@@ -3335,6 +3842,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     sw_fleet = fl
     del oracle, codes
 
+    secs_of["swakde"] = lap()
     # --- S-ANN: 64 hot slots over 72 tenants at the SIFT shape -------------
     sdata = sann_run["data"]
     shost = sdata[:n_sann].cpu().numpy()
@@ -3398,6 +3906,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     out["kernel_checks"] = checks
     del oracle, codes
 
+    secs_of["sann"] = lap()
     # --- profile windows of 4 fleet chunks ---------------------------------
     profile = {}
     n4 = 4 * CHUNK
@@ -3418,6 +3927,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
         f.close()
     del race_fleet, sw_fleet, fl
 
+    secs_of["profile"] = lap()
     # --- one launch an operation at T = 8 and T = 256 ---------------------
     gates = {}
     for kind, make, host, data in (("race", make_race, khost, kdata),
@@ -3431,7 +3941,8 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
             gates[kind].append(line)
             torch.cuda.empty_cache()
     out["per_T"] = gates
-    emit({**out, "launches": launches})
+    secs_of["gates"] = lap()
+    emit({**out, "launches": launches, "part_seconds": secs_of})
     return {"launches": launches}
 
 
@@ -3496,8 +4007,8 @@ def _cpu_sann_merge(a, b, params_dev, params_cpu, cfg, device):
                            n_seen=saturating_add(a.n_seen.cpu(), b.n_seen.cpu()))
 
 
-def phase_cluster(seed, sann_run, kde_run, device, n_sann=SANN_N,
-                  n_race=KDE_N, n_kde=CLUSTER_KDE_N,
+def phase_cluster(seed, sann_run, kde_run, device, n_sann=CLUSTER_SANN_N,
+                  n_race=CLUSTER_RACE_N, n_kde=CLUSTER_KDE_N,
                   n_durable=CLUSTER_DURABLE_N, workers=CLUSTER_WORKERS):
     """In-process merge clusters on the one card, at K = 1, 2 and 4 workers,
     fed from host numpy through ``ingest_async`` and ``flush``:
@@ -4662,6 +5173,14 @@ def phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device,
                  f"{n_chunks} commits")
 
 
+def timed(phase, *args):
+    """``phase(*args)``, then its seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase_seconds": phase.__name__, "s": time.perf_counter() - t0})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4669,7 +5188,7 @@ def main(argv=None) -> int:
                     help="1 (default): every phase, the sharding phase on "
                     "one card repeated; N > 1: only the sharding phase (and "
                     "the phases it reads) on cards 0..N-1")
-    ap.add_argument("--only", choices=["train"],
+    ap.add_argument("--only", choices=["train", "lm_families"],
                     help="run only this phase (after the device phase)")
     args = ap.parse_args(argv)
 
@@ -4691,30 +5210,35 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
 
-    phase_device()
+    ok_line = {"ok": True, "device": {"platform": "gpu",
+                                      "kind": torch.cuda.get_device_name(0),
+                                      "count": torch.cuda.device_count()}}
+    timed(phase_device)
     if args.only == "train":
-        phase_train(args.seed, device)
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
+        timed(phase_train, args.seed, device)
+        emit(ok_line)
         return 0
-    train_run = phase_train(args.seed, device) if args.cards == 1 else None
-    sann_run = phase_sann(args.seed, device)
-    kde_run = phase_kde(args.seed, device)
-    srp_run = phase_srp_kde(args.seed, kde_run, device)
+    if args.only == "lm_families":
+        for row in timed(phase_lm_families, args.seed, device)["kernel_rows"]:
+            emit({"phase": "kernel_check", **row})
+        emit(ok_line)
+        return 0
+    if args.cards == 1:
+        train_run = timed(phase_train, args.seed, device)
+        families_run = timed(phase_lm_families, args.seed, device)
+    sann_run = timed(phase_sann, args.seed, device)
+    kde_run = timed(phase_kde, args.seed, device)
+    srp_run = timed(phase_srp_kde, args.seed, kde_run, device)
     if args.cards > 1:
-        phase_sharding(args.seed, sann_run, kde_run, srp_run, device,
-                       tuple(torch.device("cuda", i)
-                             for i in range(args.cards)))
-        emit({"ok": True, "device": {"platform": "gpu",
-                                     "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
+        timed(phase_sharding, args.seed, sann_run, kde_run, srp_run, device,
+              tuple(torch.device("cuda", i) for i in range(args.cards)))
+        emit(ok_line)
         return 0
-    oracle_launches = phase_sann_oracles(sann_run, device)
-    phase_kde_oracles(srp_run, device)
-    phase_lm_cross_check(args.seed, device)
-    serve_run = phase_lm_serve(args.seed, device)
-    phase_lm_long(args.seed, serve_run, device)
+    oracle_launches = timed(phase_sann_oracles, sann_run, device)
+    timed(phase_kde_oracles, srp_run, device)
+    timed(phase_lm_cross_check, args.seed, device)
+    serve_run = timed(phase_lm_serve, args.seed, device)
+    timed(phase_lm_long, args.seed, serve_run, device)
     launches = {**{k: sann_run["launches"][k] for k in
                    ("sann_table_scatter", "batch_score_topk")},
                 **{k: kde_run["launches"][k] for k in
@@ -4725,6 +5249,7 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    t0 = time.perf_counter()
     rows = [check_srp_hash(srp_run, device),
             check_race_hist(kde_run, device),
             *check_cand_score(sann_run, device),
@@ -4735,20 +5260,23 @@ def main(argv=None) -> int:
             check_swakde_many_slots(kde_run, device, BIG_CELL_EPS, SLOTS_WARM,
                                     BIG_CELL_CROSS, cpu_rows=BIG_CELL_ROWS),
             *check_sann_table_scatter(sann_run, device),
-            *check_sketch_decode_attn(serve_run, device)]
+            *check_sketch_decode_attn(serve_run, device),
+            *families_run["kernel_rows"]]
     for row in rows:
         emit({"phase": "kernel_check", **row})
-    sharding_run = phase_sharding(
-        args.seed, sann_run, kde_run, srp_run, device,
+    emit({"phase_seconds": "kernel_check", "s": time.perf_counter() - t0})
+    sharding_run = timed(
+        phase_sharding, args.seed, sann_run, kde_run, srp_run, device,
         (torch.device("cuda", torch.cuda.current_device()),) * SHARD_K)
-    services_run = phase_services(args.seed, sann_run, kde_run, device)
-    fleet_run = phase_fleet(args.seed, sann_run, kde_run, device)
-    cluster_run = phase_cluster(args.seed, sann_run, kde_run, device)
-    rpc_run = phase_rpc_cluster(cluster_run, device)
+    services_run = timed(phase_services, args.seed, sann_run, kde_run, device)
+    fleet_run = timed(phase_fleet, args.seed, sann_run, kde_run, device)
+    cluster_run = timed(phase_cluster, args.seed, sann_run, kde_run, device)
+    rpc_run = timed(phase_rpc_cluster, cluster_run, device)
     fleet_cluster = {k: fleet_run["launches"][k] + cluster_run["launches"][k]
                      for k in launches}
     del cluster_run
-    phase_profile(sann_run, kde_run, srp_run, serve_run, services_run, device)
+    timed(phase_profile, sann_run, kde_run, srp_run, serve_run, services_run,
+          device)
     services_run["retrieval"].close()
     summary = []
     for row in rows:
@@ -4762,7 +5290,8 @@ def main(argv=None) -> int:
         if row["name"] == "cand_score" and row["shape"][0] == 3 * sann_run["cfg"].L:
             continue        # the 3L shape; reported in its kernel_check line
         if row["name"] == "sketch_decode_attn" and row["case"] != "lm_serve":
-            continue        # the long-context shapes; in their kernel_check lines
+            continue        # the long-context and internvl2 shapes; in their
+                            # kernel_check lines
         if row.get("entry") == "sann_table_scatter":
             continue        # the in-place append alone; the main path's entry
                             # is the commit (`sann_table_commit`)
@@ -4774,6 +5303,7 @@ def main(argv=None) -> int:
             "rpc_cluster_launches": rpc_run["launches"][row["name"]],
             "sharding_launches": sharding_run["launches"][row["name"]],
             "train_launches": train_run["launches"][row["name"]],
+            "families_launches": families_run["launches"].get(row["name"], 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4790,9 +5320,7 @@ def main(argv=None) -> int:
                                    "old_path_ms", "old_path_graph_ms")
                if k in row}})
     emit({"kernels": summary})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit(ok_line)
     return 0
 
 

@@ -1,34 +1,35 @@
 """Architecture registry: ``arch_id`` → ``ModelConfig``.
 
-Lists only the configurations the port runs (the dense family's decode,
-``serve/serve_step.py``).  The reference's other architectures are still
-to be ported (``ROADMAP.md``, queue 1); asking for one raises.
+Lists the reference's ten architectures.  Every family decodes
+(``serve/serve_step.py``); ``models.model.forward``, and with it training,
+takes only the dense family (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
-from . import gemma2_27b, gemma3_4b, qwen3_4b
+from . import (deepseek_moe_16b, deepseek_v3_671b, gemma2_27b, gemma3_4b,
+               granite_8b, internvl2_76b, qwen3_4b, whisper_large_v3,
+               xlstm_125m, zamba2_2p7b)
 from .base import ModelConfig
 
 _MODULES = {
+    "zamba2-2.7b": zamba2_2p7b,
     "qwen3-4b": qwen3_4b,
+    "granite-8b": granite_8b,
     "gemma2-27b": gemma2_27b,
     "gemma3-4b": gemma3_4b,
+    "whisper-large-v3": whisper_large_v3,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "deepseek-v3-671b": deepseek_v3_671b,
+    "xlstm-125m": xlstm_125m,
+    "internvl2-76b": internvl2_76b,
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 
-def _module(arch_id: str):
-    if arch_id not in _MODULES:
-        raise ValueError(
-            f"{arch_id!r} is not ported yet (the port runs {ARCH_IDS}; "
-            "see ROADMAP.md, queue 1)")
-    return _MODULES[arch_id]
-
-
 def get_config(arch_id: str) -> ModelConfig:
-    return _module(arch_id).CONFIG
+    return _MODULES[arch_id].CONFIG
 
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
-    return _module(arch_id).smoke()
+    return _MODULES[arch_id].smoke()

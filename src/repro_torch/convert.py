@@ -117,14 +117,19 @@ def _tree(d: Mapping[str, Any], device) -> dict:
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> ParamTree:
-    """The reference's ``init_model`` pytree (nested dicts of numpy arrays)
-    → the port's parameter tree on ``device``, leaf for leaf."""
+    """The reference's ``init_model`` pytree of any family (nested dicts of
+    numpy arrays) → the port's parameter tree on ``device``, leaf for leaf,
+    each leaf in its own dtype (the float32 router, ``A_log``, ``D``,
+    ``dt_bias``, ``b_if`` and ``b`` stay float32)."""
     return ParamTree(_tree(tree, resolve_device(device)))
 
 
 def lm_cache_from_numpy(cache: Mapping[str, Any], device="cuda") -> dict:
-    """A reference decode cache (``k``, ``v``, ``block_sigs``, 0-d
-    ``length``) → the port's cache (``length`` a Python int)."""
+    """A reference decode cache of any family (``k``/``v``, ``dk``/``dv``,
+    ``c``/``kr``, ``ssm_state``/``conv_buf``, the xLSTM states with their
+    -inf stabilisers, ``xk``/``xv``, ``block_sigs``, and a 0-d ``length``)
+    → the port's cache: every leaf in its own dtype and values, ``length``
+    a Python int."""
     device = resolve_device(device)
     return {k: int(v) if k == "length" else _tensor(v, device)
             for k, v in cache.items()}

@@ -60,9 +60,28 @@ def rope_at(x: torch.Tensor, position: int, theta: float) -> torch.Tensor:
     return _rotate(x, (freq * float(position))[None])
 
 
+# A leaf of more elements than this is drawn in pieces of PIECE elements
+# along its leading axes, so its float32 temporary stays small (deepseek-v3's
+# stacked expert weights are 15 GB in bf16).
+_WHOLE, _PIECE = 2**30, 2**28
+
+
 def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    """``normal(shape) * scale`` drawn in float32 from ``gen``, in ``dtype``."""
+    def draw(piece_shape):
+        x = torch.randn(piece_shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+
+    if math.prod(shape) <= _WHOLE or len(shape) < 2:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, shape[-1])
+    step = max(1, _PIECE // shape[-1])
+    for r0 in range(0, rows.shape[0], step):
+        piece = rows[r0:r0 + step]
+        piece.copy_(draw(piece.shape))
+    return out
 
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,

@@ -1,7 +1,11 @@
-"""Model assembly for the dense family: init, the layer pattern, forward.
+"""Model assembly: init for every family, the layer pattern, forward.
 
-Counterpart of the reference's ``models/model.py`` (``window_pattern``, the
-dense block, ``init_model`` and ``forward`` for the dense family).
+Counterpart of the reference's ``models/model.py``: ``window_pattern``, the
+dense block, ``init_model`` / ``init_params`` for every family (dense, vlm,
+moe with MLA or GQA attention, the Mamba2 hybrid, the xLSTM ``ssm`` and the
+encoder-decoder), the sinusoid table, and ``forward`` for the dense family.
+The other families decode (``serve/serve_step.py``); their forward is not
+ported yet (``ROADMAP.md``, queue 1).
 
 Parameters live in a `ParamTree`, an ``nn.Module`` whose parameter names map
 one to one onto the reference's pytree: ``blocks.attn.wq`` is
@@ -22,6 +26,7 @@ import functools
 import math
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.util import resolve_device
-from . import layers
+from . import layers, mla, moe, ssm, xlstm
+
+VIT_DIM = 1024  # the stub InternViT's output width
 
 
 class ParamTree(nn.Module):
@@ -70,9 +77,8 @@ def window_pattern(cfg: ModelConfig) -> tuple:
                  for i in range(cfg.n_layers))
 
 
-def _init_dense_blocks(gen, cfg: ModelConfig, dt, device) -> dict:
-    """The dense blocks' parameters, stacked on a leading layer axis."""
-    lead = (cfg.n_layers,)
+def _init_dense_block(gen, cfg: ModelConfig, dt, device, lead=()) -> dict:
+    """A dense block's parameters; ``lead`` prepends axes (a stack)."""
     zeros = lambda: torch.zeros(lead + (cfg.d_model,), dtype=dt, device=device)
     p = {
         "ln1": zeros(),
@@ -88,6 +94,42 @@ def _init_dense_blocks(gen, cfg: ModelConfig, dt, device) -> dict:
     return p
 
 
+def _init_moe_blocks(gen, cfg: ModelConfig, dt, device, lead) -> dict:
+    p = {
+        "ln1": torch.zeros(lead + (cfg.d_model,), dtype=dt, device=device),
+        "ln2": torch.zeros(lead + (cfg.d_model,), dtype=dt, device=device),
+        "moe": moe.init_moe(gen, cfg.d_model, cfg.n_experts,
+                            cfg.n_shared_experts, cfg.d_ff_expert, dt, device,
+                            lead=lead),
+    }
+    if cfg.use_mla:
+        p["attn"] = mla.init_mla(
+            gen, cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.mla_d_c,
+            cfg.mla_d_cq, cfg.mla_rope_dim, dt, device, lead=lead)
+    else:
+        p["attn"] = layers.init_attention(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.qk_norm, dt, device, lead=lead)
+    return p
+
+
+def _init_encdec_blocks(gen, cfg: ModelConfig, dt, device, lead,
+                        decoder: bool) -> dict:
+    """Whisper's encoder or decoder blocks: no qk-norm, an ungated MLP, and
+    in the decoder a cross-attention after the self-attention."""
+    zeros = lambda: torch.zeros(lead + (cfg.d_model,), dtype=dt, device=device)
+    attn = lambda: layers.init_attention(
+        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+        False, dt, device, lead=lead)
+    p = {"ln1": zeros(), "attn": attn()}
+    if decoder:
+        p["ln_x"], p["xattn"] = zeros(), attn()
+    p["ln2"] = zeros()
+    p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device,
+                               gated=False, lead=lead)
+    return p
+
+
 def _dense_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
@@ -98,16 +140,73 @@ def _dense_only(cfg: ModelConfig, what: str) -> None:
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> dict:
     """Random parameters with the reference's distributions (normal ×
     1/sqrt(fan_in), embedding normal × 0.02, norm weights zero), drawn from
-    ``gen`` on ``device`` (the generator's device), as nested dicts."""
-    _dense_only(cfg, "init_model")
+    ``gen`` on ``device`` (the generator's device), as nested dicts with the
+    reference's names, shapes and dtypes for every family.  Stacks carry a
+    leading layer axis, as the reference's ``vmap`` init gives them
+    (``(groups, attn_every, ...)`` for the hybrid's Mamba2 layers)."""
     device = resolve_device(device)
     dt = _dtype(cfg)
-    return {
-        "embedding": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt,
-                                           device, cfg.tie_embeddings),
-        "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-        "blocks": _init_dense_blocks(gen, cfg, dt, device),
+    d = cfg.d_model
+    params: dict = {
+        "embedding": layers.init_embedding(gen, cfg.vocab, d, dt, device,
+                                           cfg.tie_embeddings),
+        "ln_f": torch.zeros((d,), dtype=dt, device=device),
     }
+    if cfg.family in ("dense", "vlm"):
+        params["blocks"] = _init_dense_block(gen, cfg, dt, device,
+                                             (cfg.n_layers,))
+        if cfg.family == "vlm":
+            params["patch_proj"] = layers._normal(
+                gen, (VIT_DIM, d), 1.0 / math.sqrt(VIT_DIM), dt, device)
+    elif cfg.family == "moe":
+        nd, nm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
+        if nd:
+            params["dense_blocks"] = _init_dense_block(gen, cfg, dt, device,
+                                                       (nd,))
+        params["moe_blocks"] = _init_moe_blocks(gen, cfg, dt, device, (nm,))
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": layers._normal(gen, (2 * d, d), 1.0 / math.sqrt(2 * d),
+                                       dt, device),
+                "block": _init_dense_block(gen, cfg, dt, device),
+                "ln": torch.zeros((d,), dtype=dt, device=device),
+            }
+    elif cfg.family == "hybrid":
+        if cfg.attn_every <= 0 or cfg.n_layers % cfg.attn_every:
+            raise ValueError(f"hybrid: n_layers {cfg.n_layers} is not a "
+                             f"multiple of attn_every {cfg.attn_every}")
+        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+        params["mamba_blocks"] = {
+            "ln": torch.zeros(lead + (d,), dtype=dt, device=device),
+            "mixer": ssm.init_mamba2(gen, d, cfg.ssm_state, cfg.ssm_conv,
+                                     cfg.ssm_expand, cfg.ssm_head_dim, dt,
+                                     device, lead=lead),
+        }
+        params["shared_attn"] = _init_dense_block(gen, cfg, dt, device)
+    elif cfg.family == "ssm":   # xlstm: (mLSTM, sLSTM) pairs
+        if cfg.n_layers % 2:
+            raise ValueError(f"ssm: n_layers {cfg.n_layers} is odd")
+        lead = (cfg.n_layers // 2,)
+        zeros = lambda: torch.zeros(lead + (d,), dtype=dt, device=device)
+        params["mlstm_blocks"] = {
+            "ln": zeros(),
+            "mixer": xlstm.init_mlstm(gen, d, cfg.n_heads, dt, device,
+                                      lead=lead)}
+        params["slstm_blocks"] = {
+            "ln": zeros(),
+            "mixer": xlstm.init_slstm(gen, d, cfg.n_heads, dt, device,
+                                      lead=lead),
+            "ln_ffn": zeros(),
+            "ffn": layers.init_mlp(gen, d, 4 * d // 3, dt, device, lead=lead)}
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = _init_encdec_blocks(
+            gen, cfg, dt, device, (cfg.n_enc_layers,), decoder=False)
+        params["enc_ln_f"] = torch.zeros((d,), dtype=dt, device=device)
+        params["dec_blocks"] = _init_encdec_blocks(
+            gen, cfg, dt, device, (cfg.n_layers,), decoder=True)
+    else:
+        raise ValueError(cfg.family)
+    return params
 
 
 def init_model(cfg: ModelConfig, gen: torch.Generator, device="cuda") -> ParamTree:
@@ -167,3 +266,21 @@ def forward(params, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
     if return_hidden:
         return x, aux
     return layers.unembed(tree["embedding"], x, cfg.final_softcap), aux
+
+
+@functools.lru_cache(maxsize=32)
+def _sinusoid_np(S: int, d: int):
+    """The absolute sinusoid positions (S, d) in float64: sines then
+    cosines, as the reference's table."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
+    """`_sinusoid_np` as (1, S, d) in ``dtype`` on ``device`` (cached: the
+    decode reads one row a step)."""
+    t = torch.from_numpy(_sinusoid_np(S, d))
+    return t.to(dtype).to(device)[None]

@@ -1,21 +1,26 @@
-"""Batched single-token decode (`make_serve_step`) for the dense family.
+"""Batched single-token decode (`make_serve_step`) for every family.
 
-Counterpart of the reference's ``serve/serve_step.py`` for ``family in
-("dense", "vlm")``; the other families' decode branches, ``encode_cross_cache``
-and the ``REPRO_SPLIT_LOCAL_DECODE`` branch are still to be ported
-(``ROADMAP.md``, queue 1).  Where the reference scans over the layer stack,
-the port loops over it in Python and updates the cache **in place**: the
-step writes the new token's k and v (and its signature bits) into the
+Counterpart of the reference's ``serve/serve_step.py``: the dense and vlm
+decode, the moe decode (GQA or absorbed-MLA attention, then the experts),
+the Mamba2 hybrid (groups of Mamba2 steps, each group followed by the
+shared attention block over that group's k/v), the xLSTM ``ssm`` decode
+((mLSTM, sLSTM + FFN) pairs), the encoder-decoder decode with its
+``encode_cross_cache`` prefill.  The reference's ``REPRO_SPLIT_LOCAL_DECODE``
+branch (off by default, marked refuted there) is not ported.  Where the
+reference scans over the layer stack, the port loops over it in Python and
+updates the cache **in place**: the step writes the new token's k and v
+(its latent, its recurrent states, and its signature bits) into the
 caller's tensors and returns the cache dict with ``length + 1``.
 
-Sketch attention (the paper's S-ANN adapted to decode, DESIGN.md §5.4): every
-layer ORs the new key's 64-bit SRP signature into its 512-token block, and
-each *global* layer (window 0) attends only over the blocks that collide with
-the query's signature in at least 16 bits, plus the current block.  The port
-compacts those blocks into a live list on the device and runs the
-hand-written CUDA kernel `kernels.ops.sketch_decode_attn` over it (its plain
-version on the CPU).  Local layers, and every layer with sketch off, use the
-plain `decode_attention`, as the reference computes them.
+Sketch attention (the paper's S-ANN adapted to decode, DESIGN.md §5.4), in
+the dense and vlm decode: every layer ORs the new key's 64-bit SRP
+signature into its 512-token block, and each *global* layer (window 0)
+attends only over the blocks that collide with the query's signature in at
+least 16 bits, plus the current block.  The port compacts those blocks into
+a live list on the device and runs the hand-written CUDA kernel
+`kernels.ops.sketch_decode_attn` over it (its plain version on the CPU).
+Local layers, and every layer with sketch off, use the plain
+`decode_attention`, as the reference computes them.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from ..core import prng
 from ..core.util import fp32_reciprocal
 from ..kernels import ops
 from ..kernels.sketch_decode_attn import block_mask, live_blocks_from_sketch
-from ..models import layers, model as model_lib
+from ..models import layers, mla, model as model_lib, moe, ssm, xlstm
 from .kv_cache import SIG_BITS, SKETCH_BLOCK
 
 _SIG_SEED = 42
@@ -175,11 +180,12 @@ def _update_sigs(sigs, k_new, length: int):
 
 
 def _attn_decode_block(p, x, kc, vc, length: int, cfg: ModelConfig, *,
-                       window: int, sigs=None, live_out=None):
+                       window: int, sigs=None, live_out=None, rope_theta=None):
     """Dense-attention decode sub-block; writes the token's k and v (and,
     with ``sigs``, its signature) in place and returns the new x.  A global
     layer with ``sigs`` runs the kernel over its live blocks and stores
-    ``(block_ids, n_live)`` in ``live_out``."""
+    ``(block_ids, n_live)`` in ``live_out``.  ``rope_theta`` overrides the
+    config's (the encoder-decoder's self-attention passes 0: no RoPE)."""
     dh = cfg.resolved_head_dim
     B = x.shape[0]
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -189,8 +195,9 @@ def _attn_decode_block(p, x, kc, vc, length: int, cfg: ModelConfig, *,
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
-    q = rope_token(q, length, cfg.rope_theta)
-    k = rope_token(k, length, cfg.rope_theta)
+    theta = cfg.rope_theta if rope_theta is None else rope_theta
+    q = rope_token(q, length, theta)
+    k = rope_token(k, length, theta)
     kc[:, length] = k[:, 0].to(kc.dtype)
     vc[:, length] = v[:, 0].to(vc.dtype)
     if sigs is not None:
@@ -222,30 +229,191 @@ def _mlp_block(p, x, cfg: ModelConfig):
     return x + m
 
 
+def _mla_decode_block(p, x, cc, krc, length: int, cfg: ModelConfig):
+    """Absorbed MLA decode: scores against the latent cache directly,
+    scaled by ``1 / sqrt(dh + r)``.  Writes the token's latent and rotary
+    key in place and returns the new x."""
+    B = x.shape[0]
+    H, dh, r = cfg.n_heads, cfg.resolved_head_dim, cfg.mla_rope_dim
+    d_c = cfg.mla_d_c
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    c_new, kr_new = mla.mla_latent(p["attn"], h, length, rope_dim=r,
+                                   rope_theta=cfg.rope_theta,
+                                   norm_eps=cfg.norm_eps)
+    cc[:, length] = c_new[:, 0].to(cc.dtype)
+    krc[:, length] = kr_new[:, 0].to(krc.dtype)
+    q_nope, q_rope = mla.mla_queries(
+        p["attn"], h, length, n_heads=H, head_dim=dh, rope_dim=r,
+        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+    w_uk = p["attn"]["w_uk"].reshape(d_c, H, dh)
+    q_abs = torch.einsum("bqhd,chd->bhc", q_nope.float(), w_uk.float())
+    s = torch.einsum("bhc,bsc->bhs", q_abs, cc.float()) \
+        + torch.einsum("bqhr,bsr->bhs", q_rope.float(), krc.float())
+    s = s * fp32_reciprocal(math.sqrt(dh + r))
+    mask = torch.arange(cc.shape[1], device=x.device) <= length
+    s = torch.where(mask[None, None, :], s, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsc->bhc", w, cc.float())          # (B, H, d_c)
+    w_uv = p["attn"]["w_uv"].reshape(d_c, H, dh)
+    o = torch.einsum("bhc,chd->bhd", o_lat, w_uv.float())
+    o = o.reshape(B, 1, H * dh) @ p["attn"]["w_o"].float()
+    return x + o.to(x.dtype)
+
+
+def _layer_views(cfg: ModelConfig, tree) -> dict:
+    """Each stack's per-layer trees (views of the stacked leaves)."""
+    lp = model_lib.layer_params
+    stack = lambda name, n: [lp(tree[name], i) for i in range(n)]
+    f = cfg.family
+    if f in ("dense", "vlm"):
+        return {"blocks": stack("blocks", cfg.n_layers)}
+    if f == "moe":
+        nd = cfg.n_dense_layers
+        return {"dense": stack("dense_blocks", nd) if nd else [],
+                "moe": stack("moe_blocks", cfg.n_layers - nd)}
+    if f == "hybrid":
+        G, E = cfg.n_layers // cfg.attn_every, cfg.attn_every
+        return {"mamba": [[lp(g, e) for e in range(E)]
+                          for g in stack("mamba_blocks", G)]}
+    if f == "ssm":
+        pairs = cfg.n_layers // 2
+        return {"pairs": list(zip(stack("mlstm_blocks", pairs),
+                                  stack("slstm_blocks", pairs)))}
+    if f == "encdec":
+        return {"dec": stack("dec_blocks", cfg.n_layers)}
+    raise ValueError(f)
+
+
+def _seq_capacity(cache: dict):
+    """The cache's token capacity (None for the recurrent ``ssm`` cache)."""
+    for name in ("k", "dk", "c"):
+        if name in cache:
+            return cache[name].shape[2]
+    return None
+
+
+def _decode_dense(cfg, views, tree, cache, x, length, sigs, live):
+    for i, (p, window) in enumerate(zip(views["blocks"],
+                                        model_lib.window_pattern(cfg))):
+        x = _attn_decode_block(
+            p, x, cache["k"][i], cache["v"][i], length, cfg, window=window,
+            sigs=None if sigs is None else sigs[i], live_out=live)
+        x = _mlp_block(p, x, cfg)
+    return x
+
+
+def _decode_moe(cfg, views, tree, cache, x, length, sigs, live):
+    for i, p in enumerate(views["dense"]):
+        x = _attn_decode_block(p, x, cache["dk"][i], cache["dv"][i], length,
+                               cfg, window=0)
+        x = _mlp_block(p, x, cfg)
+    cf = max(cfg.capacity_factor, 8.0)  # tiny T at decode
+    for i, p in enumerate(views["moe"]):
+        if cfg.use_mla:
+            x = _mla_decode_block(p, x, cache["c"][i], cache["kr"][i], length,
+                                  cfg)
+        else:
+            x = _attn_decode_block(p, x, cache["k"][i], cache["v"][i], length,
+                                   cfg, window=0)
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        m, _ = moe.moe(p["moe"], h, topk=cfg.moe_topk, capacity_factor=cf)
+        x = x + m
+    return x
+
+
+def _decode_hybrid(cfg, views, tree, cache, x, length, sigs, live):
+    st, cb = cache["ssm_state"], cache["conv_buf"]
+    for g, group in enumerate(views["mamba"]):
+        for e, p in enumerate(group):
+            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+            o, nc = ssm.mamba2_decode_step(
+                p["mixer"], h, ssm.SSMCache(st[g, e], cb[g, e]),
+                state=cfg.ssm_state, expand=cfg.ssm_expand,
+                head_dim=cfg.ssm_head_dim, norm_eps=cfg.norm_eps)
+            st[g, e].copy_(nc.state)
+            cb[g, e].copy_(nc.conv_buf)
+            x = x + o
+        p = tree["shared_attn"]
+        x = _attn_decode_block(p, x, cache["k"][g], cache["v"][g], length, cfg,
+                               window=0)
+        x = _mlp_block(p, x, cfg)
+    return x
+
+
+def _decode_ssm(cfg, views, tree, cache, x, length, sigs, live):
+    x1 = x[:, 0]      # (B, d); the cells consume (B, 1, d) sequences
+    for i, (pm, psl) in enumerate(views["pairs"]):
+        h = layers.rms_norm(x1, pm["ln"], cfg.norm_eps)[:, None]
+        o, st = xlstm.mlstm(pm["mixer"], h, n_heads=cfg.n_heads,
+                            norm_eps=cfg.norm_eps, state=xlstm.MLSTMState(
+                                cache["mlstm_C"][i], cache["mlstm_n"][i],
+                                cache["mlstm_m"][i]))
+        x1 = x1 + o[:, 0]
+        h = layers.rms_norm(x1, psl["ln"], cfg.norm_eps)[:, None]
+        o2, st2 = xlstm.slstm(psl["mixer"], h, n_heads=cfg.n_heads,
+                              norm_eps=cfg.norm_eps, state=xlstm.SLSTMState(
+                                  *(cache[f"slstm_{n}"][i] for n in "cnhm")))
+        x1 = x1 + o2[:, 0]
+        hf = layers.rms_norm(x1, psl["ln_ffn"], cfg.norm_eps)
+        x1 = x1 + layers.mlp(psl["ffn"], hf)
+        for name, value in (("mlstm_C", st.C), ("mlstm_n", st.n),
+                            ("mlstm_m", st.m), *((f"slstm_{n}", v) for n, v
+                                                 in zip("cnhm", st2))):
+            cache[name][i].copy_(value)
+    return x1[:, None]
+
+
+def _decode_encdec(cfg, views, tree, cache, x, length, sigs, live):
+    # absolute sinusoidal position of the current token
+    tab = model_lib._sinusoid(cache["k"].shape[2], cfg.d_model, x.dtype,
+                              x.device)
+    x = x + tab[:, length:length + 1]
+    B, dh = x.shape[0], cfg.resolved_head_dim
+    Te = cache["xk"].shape[2]
+    for i, p in enumerate(views["dec"]):
+        x = _attn_decode_block(p, x, cache["k"][i], cache["v"][i], length, cfg,
+                               window=0, rope_theta=0.0)
+        # cross attention over the precomputed encoder cache
+        h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        q = (h @ p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, dh)
+        a = decode_attention(q, cache["xk"][i], cache["xv"][i], Te - 1)
+        x = x + (a @ p["xattn"]["wo"].float()).to(x.dtype)
+        x = _mlp_block(p, x, cfg)
+    return x
+
+
+_DECODE = {"dense": _decode_dense, "vlm": _decode_dense, "moe": _decode_moe,
+           "hybrid": _decode_hybrid, "ssm": _decode_ssm,
+           "encdec": _decode_encdec}
+
+
 def make_serve_step(cfg: ModelConfig, sketch: bool = False):
     """``serve_step(params, cache, tokens)``: tokens (B, 1) int on the
     cache's device → (logits (B, 1, vocab) fp32, cache with ``length + 1``).
-    ``params`` is `models.model.init_model`'s tree (or its ``to_dict()``).
-    After each call, ``serve_step.last_live`` lists ``(block_ids, n_live)``
-    of every global layer that ran the sketch kernel, in layer order."""
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"make_serve_step: family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md, queue 1)")
-    wins = model_lib.window_pattern(cfg)
-    views = {"params": None, "layers": None}
+    ``params`` is `models.model.init_model`'s tree (or its ``to_dict()``),
+    any family.  After each call, ``serve_step.last_live`` lists
+    ``(block_ids, n_live)`` of every global layer that ran the sketch
+    kernel, in layer order (only the dense and vlm decode runs it); the
+    list is refilled in place by the next call."""
+    if cfg.family not in _DECODE:
+        raise ValueError(cfg.family)
+    decode = _DECODE[cfg.family]
+    views = {"params": None}
+    # updated in place: the step must not refer to itself (a reference
+    # cycle would hold the weights its views keep until a garbage collection)
+    last_live = []
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
         length = cache["length"]
-        if length >= cache["k"].shape[2]:
+        cap = _seq_capacity(cache)
+        if cap is not None and length >= cap:
             raise ValueError(f"serve_step: the cache holds {length} tokens "
                              f"and has no room for another")
         if views["params"] is not params:
             tree = params.to_dict() if hasattr(params, "to_dict") else params
-            views.update(params=params, tree=tree, layers=[
-                model_lib.layer_params(tree["blocks"], i)
-                for i in range(cfg.n_layers)])
+            views.update(params=params, tree=tree,
+                         layers=_layer_views(cfg, tree))
         tree = views["tree"]
         sigs = cache.get("block_sigs") if sketch else None
         x = layers.embed(tree["embedding"], tokens)
@@ -253,16 +421,44 @@ def make_serve_step(cfg: ModelConfig, sketch: bool = False):
             # the reference rounds sqrt(d_model) to the activation dtype first
             x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
         live = []
-        for i, p in enumerate(views["layers"]):
-            x = _attn_decode_block(
-                p, x, cache["k"][i], cache["v"][i], length, cfg,
-                window=wins[i], sigs=None if sigs is None else sigs[i],
-                live_out=live)
-            x = _mlp_block(p, x, cfg)
+        x = decode(cfg, views["layers"], tree, cache, x, length, sigs, live)
         x = layers.rms_norm(x, tree["ln_f"], cfg.norm_eps)
         logits = layers.unembed(tree["embedding"], x, cfg.final_softcap)
-        serve_step.last_live = live
+        last_live[:] = live
         return logits, dict(cache, length=length + 1)
 
-    serve_step.last_live = []
+    serve_step.last_live = last_live
     return serve_step
+
+
+@torch.no_grad()
+def encode_cross_cache(params, cfg: ModelConfig, frames, cache) -> dict:
+    """Run the encoder once over ``frames (B, enc_frames, d_model)`` (the
+    stub frontend's embeddings) and return the cache with every decoder
+    layer's cross-attention ``xk`` / ``xv``, bfloat16 as the reference
+    stores them (whisper-style serving prefill)."""
+    tree = params.to_dict() if hasattr(params, "to_dict") else params
+    dt = model_lib._dtype(cfg)
+    B, Te, _ = frames.shape
+    dh = cfg.resolved_head_dim
+    enc_pos = torch.arange(Te, dtype=torch.int32,
+                           device=frames.device).expand(B, Te)
+    x = frames.to(dt) + model_lib._sinusoid(Te, cfg.d_model, dt, frames.device)
+    for i in range(cfg.n_enc_layers):
+        p = model_lib.layer_params(tree["enc_blocks"], i)
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, _ = layers.attention(p["attn"], h, enc_pos, n_heads=cfg.n_heads,
+                                n_kv_heads=cfg.n_kv_heads, head_dim=dh,
+                                rope_theta=0.0, causal=False,
+                                norm_eps=cfg.norm_eps)
+        x = x + a
+        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + layers.mlp(p["mlp"], h, act=layers.gelu_tanh)
+    enc = layers.rms_norm(x, tree["enc_ln_f"], cfg.norm_eps)
+    xk, xv = [], []
+    for i in range(cfg.n_layers):
+        p = model_lib.layer_params(tree["dec_blocks"], i)["xattn"]
+        for out, w in ((xk, p["wk"]), (xv, p["wv"])):
+            out.append((enc @ w).reshape(B, Te, cfg.n_kv_heads, dh)
+                       .to(torch.bfloat16))
+    return dict(cache, xk=torch.stack(xk), xv=torch.stack(xv))

@@ -1117,3 +1117,67 @@ def test_train_step_repeats_bit_for_bit_on_the_card(dev, dtype):
             state, m = step(state, {"tokens": tokens.to(dev)})
         runs.append(tree_leaves(state))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b",
+                                  "zamba2-2.7b", "xlstm-125m",
+                                  "whisper-large-v3", "internvl2-76b"])
+def test_family_decode_on_the_card_matches_the_cpu(dev, arch):
+    """Each family's smoke config in float32: 8 greedy decode steps on the
+    card against the plain path on the CPU from one tree and one zero
+    cache (whisper's cross cache from the same frames; internvl2 with
+    sketch attention, every layer launching `sketch_decode_attn`).  Logits
+    and every float cache leaf within 1e-5 of their largest value (fp32
+    sums in another order; the bf16 cross cache within one ulp of its
+    largest value), bool
+    leaves and ``length`` equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              param_dtype="float32")
+    sketch = cfg.family == "vlm"
+    s_max = 1024 if sketch else 64
+    cpu = torch.device("cpu")
+    params = model.init_params(cfg, torch.Generator().manual_seed(1), cpu)
+    to_dev = lambda t: {k: to_dev(v) if isinstance(v, dict) else v.to(dev)
+                        for k, v in t.items()}
+    trees = {cpu: params, dev: to_dev(params)}
+    caches = {d: kv_cache.init_cache(cfg, 2, s_max, sketch=sketch, device=d)
+              for d in (cpu, dev)}
+    if cfg.family == "encdec":
+        frames = torch.randn(2, cfg.enc_frames, cfg.d_model,
+                             generator=torch.Generator().manual_seed(2))
+        for d in (cpu, dev):
+            caches[d] = serve_step.encode_cross_cache(trees[d], cfg,
+                                                      frames.to(d), caches[d])
+    step = serve_step.make_serve_step(cfg, sketch=sketch)
+    tok = torch.zeros((2, 1), dtype=torch.long)
+    for _ in range(8):
+        before = ops.LAUNCHES["sketch_decode_attn"]
+        out = {d: step(trees[d], caches[d], tok.to(d)) for d in (cpu, dev)}
+        launched = ops.LAUNCHES["sketch_decode_attn"] - before
+        assert launched == (cfg.n_layers if sketch else 0)
+        (lc, caches[cpu]), (lg, caches[dev]) = out[cpu], out[dev]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0,
+                                   atol=1e-5 * float(lc.abs().max()))
+        tok = lc.argmax(-1)
+    assert caches[dev]["length"] == caches[cpu]["length"] == 8
+    for name, want in caches[cpu].items():
+        if name == "length":
+            continue
+        got = caches[dev][name].cpu()
+        if want.dtype == torch.bool:
+            assert torch.equal(got, want), name
+        elif want.dtype == torch.bfloat16:
+            # whisper's cross cache, bf16 as the reference stores it: an fp32
+            # value near a rounding boundary may round either way, one ulp
+            # of at most the leaf's largest value
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=2.0 ** -7 * float(want.float().abs().max()),
+                                       msg=name)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=1e-5 * float(want.float().abs().max()),
+                                       msg=name)

@@ -27,10 +27,11 @@ on a 1/8 grid cross over, so both packages hash alike.  Then:
   or without a "shard" axis.
 
 The reference's functions are jitted once per module and compiled at
-XLA's lowest backend optimisation level (`_jit`): these shapes are tiny,
-so compiling dominates, and the level changes no result (XLA keeps IEEE
-semantics at every level, and on these grids every sum is exact); with
-``_FAST = {}`` (XLA's default options) the file passes as well.
+XLA's lowest backend optimisation level with its older loop emitters
+(`_jit`, `torch_parity.XLA_FAST`): these shapes are tiny, so compiling
+dominates, and neither option changes a result (XLA keeps IEEE semantics
+at every level, and on these grids every sum is exact); with ``_FAST =
+{}`` (XLA's default options) the file passes as well.
 """
 from unittest import mock
 
@@ -60,15 +61,14 @@ from repro_torch.serve.kde_service import KDEService, KDEServiceConfig
 from repro_torch.serve.race_service import RACEService, RACEServiceConfig
 from repro_torch.serve.retrieval import RetrievalConfig, RetrievalService
 
-from torch_parity import (ATOL, RTOL, assert_state_equal, exact_params,
-                          grid_data, np_, port_params)
+from torch_parity import (ATOL, RTOL, XLA_FAST, assert_state_equal,
+                          exact_params, grid_data, np_, port_params)
 
 D = 8
 SHARDS = (2, 4, 8)
 
 
-_FAST = {"xla_backend_optimization_level": 0,
-         "xla_llvm_disable_expensive_passes": True}
+_FAST = XLA_FAST
 
 
 def _fast(jitted, static_argnums=()):

@@ -164,10 +164,14 @@ def assert_rel(got, want, tol):
 
 def lm_tree_np(cfg, seed: int) -> dict:
     """The reference's parameter tree as numpy: the port's `init_params`
-    shapes (the reference's names and layout) with values drawn at the
-    reference's distributions, norm weights 0.1 * normal (the reference
-    starts them at 0) so their ``1 + w`` scale matters.  (The reference's
-    own ``init_model`` compiles for seconds.)"""
+    shapes and dtypes (the reference's names and layout, any family) with
+    values drawn at the reference's distributions, norm weights 0.1 *
+    normal (the reference starts them at 0) so their ``1 + w`` scale
+    matters, and the recurrent families' special leaves near their
+    meaning: Mamba2's decay ``A_log``, step bias ``dt_bias`` (steps in
+    [0.01, 0.5]) and skip ``D``, the conv biases, the xLSTM gate biases
+    (forget gates near 3), all float32 where the reference keeps them so.
+    (The reference's own ``init_model`` compiles for seconds.)"""
     from repro_torch.models import model as tmodel
     like = tmodel.init_params(port_model_cfg(cfg),
                               torch.Generator().manual_seed(0), "cpu")
@@ -175,13 +179,28 @@ def lm_tree_np(cfg, seed: int) -> dict:
     dt = jnp.bfloat16 if cfg.param_dtype == "bfloat16" else np.float32
 
     def draw(name, t):
-        if name.startswith("ln") or name.endswith("_norm"):
+        norm = (name.startswith("ln") or name.endswith("_norm")
+                or name in ("norm_w", "enc_ln_f"))
+        if norm:
             x = 0.1 * rng.normal(size=t.shape)
         elif name == "embed":
             x = 0.02 * rng.normal(size=t.shape)
+        elif name == "A_log":
+            x = rng.uniform(-1.0, 1.0, size=t.shape)
+        elif name == "dt_bias":
+            x = np.log(np.expm1(rng.uniform(0.01, 0.5, size=t.shape)))
+        elif name == "D":
+            x = 1.0 + 0.1 * rng.normal(size=t.shape)
+        elif name in ("conv_w", "conv_b"):
+            x = 0.1 * rng.normal(size=t.shape)
+        elif name in ("b_if", "b"):
+            x = 0.5 * rng.normal(size=t.shape)
+            forget = x[..., t.shape[-1] // 2:] if name == "b_if" else x[..., 1, :]
+            forget += 3.0
         else:
             x = rng.normal(size=t.shape) / np.sqrt(t.shape[-2])
-        return np.asarray(x.astype(np.float32), dt)
+        leaf_dt = np.float32 if t.dtype == torch.float32 else dt
+        return np.asarray(x.astype(np.float32), leaf_dt)
 
     def walk(d):
         return {k: walk(v) if isinstance(v, dict) else draw(k, v)
