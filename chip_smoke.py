@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cards 4             # the sharding phase on four
     python3 chip_smoke.py --only train          # the training phase alone
     python3 chip_smoke.py --only lm_families    # the other families' decode
+    python3 chip_smoke.py --only train_families # the other families' training
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``), then drives the main path through the entry points a
@@ -44,10 +45,29 @@ user calls, at full width:
   for internvl2 (its kernel also held against its plain version at that
   shape); step times, tokens/s, peak memory and one profiled step each.
   Then each at full width with its depth cut to its family's smallest unit
-  in fp32: card against the CPU's plain path over 8 steps (logits, every
+  in fp32: card against the CPU's plain path over 6 steps (logits, every
   cache leaf, MoE expert ids but for counted near ties; deepseek-v3's
   experts come to the CPU only where a step routes), and bf16 against
   fp32 on the card (logit cosine);
+* **the other model families' training** (``train_families``, next, one
+  configuration at a time on a card that holds nothing else, random bf16
+  weights at published width from the seed): deepseek-moe-16b (6 of 28
+  layers: 1 dense + 5 MoE, the capacity buffer and the aux loss) and
+  zamba2-2.7b (all 54 Mamba2 layers and the shared block: the chunked
+  SSD) through the ``Trainer`` (AdamW, the token stream, B = 2 x S =
+  4096, its drift monitor checked at every batch), xlstm-125m (12 layers,
+  B = 2 x S = 64) likewise, deepseek-v3-671b (4 of 61 layers, 3 dense +
+  1 MoE with MLA, and the MTP block; B = 1 x S = 2048) through one
+  microbatch's ``grads_and_metrics``, whisper-large-v3 (32 + 32 layers, B
+  = 2, 1500 frames and 448 tokens) and internvl2-76b (2 of 80 layers, B =
+  2, 256 patches + 3840 tokens) through ``make_train_step``: 2 steps and
+  one profiled each, finite loss and gradient norm at every step, and no
+  kernel but the monitor's one ``srp_hash`` and one ``swakde_segment_pass``
+  a step.  Then each family's smallest unit at full width in fp32 (TF32
+  off) on the card against the CPU's plain path (loss and every gradient
+  leaf; deepseek-v3 at its smoke width), bf16 against fp32 on the card
+  (gradient cosine), and the ``Trainer``'s resume on zamba2 at one group
+  (Adam8bit), bit-identical to an unbroken run;
 * **S-ANN at SIFT1M scale** (ann-benchmarks ``sift-128-euclidean``: 1 000 000
   base vectors, 10 000 queries, d = 128; synthetic SIFT-like data drawn on
   the device): ``sann_insert_chunked`` in chunks of 4096, then
@@ -95,12 +115,13 @@ user calls, at full width:
   news width, 524 288 points) in 256 hot slots over 1024 tenants,
   spilling and reactivating, also durable and recovered; SW-AKDE
   (p-stable, eps 0.1, window 8192 a tenant, 1 048 576 points) over 256
-  tenants; S-ANN (SIFT shape, n_max 65 536 a tenant, 24 576 points) in 64
+  tenants; S-ANN (SIFT shape, n_max 65 536 a tenant, 20 480 points) in 64
   hot slots over 72 tenants, then a 2048-query block of top-50 and (c, r)
   queries.  Every tenant's row must equal its sub-stream through the
   single-sketch core loop on the card with the fleet's codes and keys, and
-  every answer its own sketch's; each kind at T = 8 (re-run on the CPU)
-  and T = 256 launches each commit kernel once an operation;
+  every answer its own sketch's; each kind at T = 8 (re-run on the CPU),
+  and RACE and SW-AKDE at T = 256, launches each commit kernel once an
+  operation;
 * **the in-process merge cluster** at K = 1, 2 and 4 workers on the card:
   ``ClusterRetrievalService`` (SIFT1M shape, the stream's first 524 288
   points; the merge against
@@ -113,11 +134,10 @@ user calls, at full width:
   salvaged;
 * **the RPC cluster** (``repro_torch.net``): the same clusters with each
   worker a spawned process and CUDA context of its own on the card, one
-  RPC a chunk over the reference's wire format: RACE at K = 1, 2, 4,
+  RPC a chunk over the reference's wire format: RACE at K = 4,
   SW-AKDE at K = 4 and S-ANN at K = 4 (n_max 250 000 a worker: a worker's
   snapshot must fit the protocol's 256 MiB frame), each equal bit for bit
-  to the in-process cluster on the same stream; a K = 2, n_max 1 000 000
-  S-ANN snapshot refused by the frame cap; a durable K = 2 RACE cluster
+  to the in-process cluster on the same stream; a durable K = 2 RACE cluster
   with a dropped ``net.send`` retried in place, stopped and recovered; a
   SIGKILLed worker respawned and recovered, and with respawn off salvaged.
   Each worker process must launch its commit kernels (its ``K_STATS``
@@ -217,24 +237,57 @@ FAM_B, FAM_S, FAM_PROMPT, FAM_GEN = 4, 4096, 128, 64
 # the fp32 card-vs-CPU check at full width, depth cut to the family's
 # smallest unit (moe: 1 dense + 1 MoE layer; hybrid: one group of 6 Mamba2
 # layers and the shared block; encdec: 2 encoder + 2 decoder layers; vlm: 2
-# layers; ssm: all 12 layers, 0.7 GB), B = 2 over 8 teacher-forced steps:
-# logits within FAM_LOGIT_TOL of their largest, every float cache leaf
-# within FAM_CACHE_TOL of its largest (fp32 sums in another order: gemma3-4b's
-# 6 fp32 layers measured 1.9e-6 and 1.3e-6; the recurrent states and the
-# softmaxes amplify), MoE routes equal except where two experts'
-# probabilities lie within FAM_ROUTE_TIE of each other (counted; the
-# comparison stops at such a step); whisper's cross cache, bfloat16 in both
-# (the reference stores it so), within one bf16 ulp of its largest value,
-# FAM_BF16_LEAF_TOL (an fp32 value near a rounding boundary rounds either
-# way); the bf16 decode against the fp32 one on the card over the same
-# tokens: every step's logit cosine >= FAM_BF16_COSINE
-FAM_CROSS_B, FAM_CROSS_S, FAM_CROSS_STEPS = 2, 1024, 8
+# layers; ssm: all 12 layers, 0.7 GB), B = 2 over 6 teacher-forced steps
+# (cut from 8 for time): logits within FAM_LOGIT_TOL of their largest, every
+# float cache leaf within FAM_CACHE_TOL of its largest (fp32 sums in another
+# order: gemma3-4b's 6 fp32 layers measured 1.9e-6 and 1.3e-6; the
+# recurrent states and the softmaxes amplify), MoE routes equal except
+# where two experts' probabilities lie within FAM_ROUTE_TIE of each other
+# (counted; the comparison stops at such a step); whisper's cross cache,
+# bfloat16 in both (the reference stores it so), within one bf16 ulp of its
+# largest value, FAM_BF16_LEAF_TOL (an fp32 value near a rounding boundary
+# rounds either way); the bf16 decode against the fp32 one on the card over
+# the same tokens: every step's logit cosine >= FAM_BF16_COSINE
+FAM_CROSS_B, FAM_CROSS_S, FAM_CROSS_STEPS = 2, 1024, 6
 FAM_CROSS_LEN = 600              # internvl2's injected start (two sketch blocks)
 FAM_LOGIT_TOL, FAM_CACHE_TOL, FAM_ROUTE_TIE = 1e-4, 1e-4, 1e-5
 FAM_BF16_COSINE = 0.99
 FAM_BF16_LEAF_TOL = 2.0 ** -7
 # the leaves the reference keeps in float32 whatever the parameter dtype
 FP32_LEAVES = ("router", "A_log", "D", "dt_bias", "b_if", "b")
+# train_families: every other family's training at its published width,
+# random bf16 weights from the seed, one configuration at a time on a card
+# that holds nothing else: (arch, layers run or None for all, how, B, S),
+# "how" the entry point: the Trainer (token-only families, drift monitor
+# on), make_train_step (the frontends' frames or patches), or one
+# microbatch's grads_and_metrics (deepseek-v3: parameters + gradients are
+# 67.6 GB at 4 layers; no optimizer state fits).  Depths reckoned at 12
+# bytes a parameter (bf16 weights and gradients, AdamW's two fp32 moments):
+# deepseek-moe-16b 6 of 28 layers (3.44 G parameters, ~41 GB),
+# deepseek-v3-671b 4 of 61 (3 dense + 1 MoE/MLA) and the MTP block (16.9 G),
+# internvl2-76b 2 of 80 (3.8 G, ~46 GB); S counts internvl2's 256 patches
+# (3840 text tokens) and not whisper's 1500 frames.  xlstm-125m runs S =
+# 64: its recurrences loop over time in Python, ~1.9 M device ops a step at
+# S = 1024 (60-67 s a step on the card, 6% busy), 7.8 s at S = 128
+TRAIN_FAMILY_RUNS = (("deepseek-moe-16b", 6, "trainer", 2, 4096),
+                     ("deepseek-v3-671b", 4, "grads", 1, 2048),
+                     ("zamba2-2.7b", None, "trainer", 2, 4096),
+                     ("xlstm-125m", None, "trainer", 2, 64),
+                     ("whisper-large-v3", None, "step", 2, 448),
+                     ("internvl2-76b", 2, "step", 2, 4096))
+TRAIN_FAM_STEPS = 2                  # then one profiled
+# the fp32 card-vs-CPU check at each family's smallest unit: loss and
+# metrics within TRAIN_FAM_LOSS_TOL relative, every gradient leaf within
+# TRAIN_FAM_GRAD_TOL of its largest entry (fp32 sums in another order);
+# zamba2's Mamba2 layers round their intra-chunk scores to bf16 in both
+# packages, so a score whose fp32 value differs in its last bit rounds one
+# bf16 ulp apart: its gradients within one bf16 ulp of their largest,
+# TRAIN_FAM_SSD_TOL; bf16 against fp32 on the card: loss within 2e-2
+# relative, whole-gradient cosine >= TRAIN_FAM_BF16_COSINE
+TRAIN_FAM_CROSS_B, TRAIN_FAM_CROSS_S = 2, 128
+TRAIN_FAM_LOSS_TOL, TRAIN_FAM_GRAD_TOL = 1e-5, 1e-4
+TRAIN_FAM_SSD_TOL = 2.0 ** -8
+TRAIN_FAM_BF16_COSINE = 0.99
 
 # the services phase: rows a producer hands `ingest_async` per call (16
 # chunks), the snapshot cadence, closed-loop clients, rows the RACE delete
@@ -248,15 +301,18 @@ SERVICE_KERNELS = ("srp_hash", "race_hist", "batch_score_topk",
 # chunk all one tenant's; RACE 256 hot slots over 1024 tenants, SW-AKDE 256
 # tenants in 256 slots (window 8192 a tenant), S-ANN 64 hot slots over 72
 # tenants (n_max 65 536 a tenant: 58 MB of tables each); each kind also at
-# T = 8 (4 chunks, re-run on the CPU) and T = 256 (2 chunks)
+# T = 8 (4 chunks, re-run on the CPU) and RACE and SW-AKDE at T = 256 (2
+# chunks; S-ANN's T = 256 gate, 16.5 GB of tables, is cut for time: the
+# sharding phase splits an S-ANN fleet of T = 64 by tenant)
 FLEET_ZIPF_S, FLEET_TENANTS, FLEET_HOT, FLEET_HOT_CHUNK = 1.1, 1024, 256, 4
 FLEET_SW_N = KDE_N
 FLEET_RACE_N = KDE_N // 2
 FLEET_SW_TENANTS, FLEET_SW_WINDOW = 256, 8192
 FLEET_SANN_TENANTS, FLEET_SANN_HOT = 72, 64
 FLEET_SANN_NMAX = 65_536
-FLEET_SANN_N = 6 * CHUNK             # reaches the all-one-tenant chunk
+FLEET_SANN_N = 5 * CHUNK             # reaches the all-one-tenant chunk
 FLEET_GATE_T, FLEET_GATE_CHUNKS = (8, 256), {8: 4, 256: 2}
+FLEET_SANN_GATE_T = (8,)
 FLEET_DURABLE_CHUNKS, FLEET_SNAPSHOT_EVERY, FLEET_QUERIES = 4, 4, 2048
 # the cluster phase: K workers on the one card; the KDE stream stays under
 # every worker's window (65 536 / K) so nothing expires
@@ -267,10 +323,16 @@ CLUSTER_RACE_N, CLUSTER_SANN_N = KDE_N // 2, SANN_N // 2
 # the rpc_cluster phase: the cluster phase's workloads, each worker a spawned
 # process; S-ANN at n_max 250 000 a worker, so that a worker's snapshot
 # (164.5 MB) fits the wire protocol's 256 MiB frame (at 1 000 000 it is 434
-# MB: that run must be refused); SW-AKDE and S-ANN merge at query time only
-# (each merge pulls every worker's snapshot over TCP), RACE every 8 commits
-RPC_SANN_NMAX, RPC_CAP_NMAX = 250_000, 1_000_000
+# MB: tests/test_torch_net.py checks the refusal with the cap lowered; the
+# K = 2 cluster that showed it here is cut for time); SW-AKDE and S-ANN
+# merge at query time only (each merge pulls every worker's snapshot over
+# TCP), RACE every 8 commits
+RPC_SANN_NMAX = 250_000
 RPC_MERGE_EVERY, RPC_TIMEOUT_S = 10**9, 120.0
+# every RPC cluster runs at K = 4 but the durable and failover ones (K =
+# 2): the in-process `cluster` phase covers K = 1, 2, 4 of each kind, and
+# each spawned cluster costs ~10 s of start-up
+RPC_K = 4
 
 # the sharding phase: K = 4 shards (one card repeated, or four cards); SRP
 # SW-AKDE at eps 0.01 (52 slots); S-ANN merged from two halves of 8 chunks;
@@ -395,6 +457,25 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def device_profile(prof, top=10):
+    """(busy ms, device ops, top ops) of a finished profile, read from its
+    raw device events: building the profiler's per-event objects for a step
+    of 10^5-10^6 ops takes minutes."""
+    busy_ns, n, by_name = 0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        dur = (e.duration_ns() if hasattr(e, "duration_ns")
+               else e.duration_us() * 1000)
+        busy_ns += dur
+        n += 1
+        ns, c = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + dur, c + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy_ns / 1e6, n, [{"op": k[:80], "ms": ns / 1e6, "calls": c}
+                              for k, (ns, c) in rows]
 
 
 def device_ms(fn, name: str, device, iters: int = 20):
@@ -1573,10 +1654,8 @@ def phase_train_full(seed, device, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS):
                      "profiled": profiled})
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    events = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    busy_ms, n_ops, top = device_profile(prof)
     reduce_s = time.perf_counter() - t0
-    events = sorted((r for r in events if r[1] > 0), key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in events)
     prof_wall_ms = rows[-1]["ms"]
     # AdamW's update alone on the run's state, gradients in the parameters'
     # dtype as the step gives them (after the peak was read); it reads p
@@ -1605,16 +1684,15 @@ def phase_train_full(seed, device, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS):
           "monitor_code_flips": flips, "monitor_state_equals_cpu": True,
           "monitor_density_err_rel_max": density_err,
           "profiled_step_ms": prof_wall_ms,
-          "profiled_device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / 1e3 / prof_wall_ms,
+          "profiled_device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / prof_wall_ms,
           # the profiled step's device time over an unprofiled step's wall
-          "device_busy_over_median_step": busy_us / 1e3 / step_ms,
+          "device_busy_over_median_step": busy_ms / step_ms,
           "profile_reduce_s": reduce_s,
-          "profiled_device_ops": sum(r[2] for r in events),
+          "profiled_device_ops": n_ops,
           "optimizer_update_ms": opt_ms,
           "optimizer_update_bound_ms": opt_bytes / PEAK_BYTES_PER_S * 1e3,
-          "top_device_ops": [{"op": k[:80], "ms": us / 1e3, "calls": c}
-                             for k, us, c in events[:10]]})
+          "top_device_ops": top})
     del state, m, batch
     torch.cuda.empty_cache()
     return {"launches": launches, "steps": steps + 1}
@@ -1797,23 +1875,28 @@ class _TimedCheckpointer:
 
 
 def phase_train_resume(seed, device, n_layers=TRAIN_CROSS_LAYERS, B=2,
-                       S=TRAIN_RESUME_S):
+                       S=TRAIN_RESUME_S, arch=None):
     """The Trainer (Adam8bit, drift monitor on) at full width, depth cut to
-    ``n_layers``: 2 steps without a break against 1 step, a checkpoint, and
-    a fresh Trainer resuming it for the second: parameters, optimizer state
-    and step bit-identical on the card."""
+    ``n_layers`` (gemma3-4b, or ``arch``): 2 steps without a break against
+    1 step, a checkpoint, and a fresh Trainer resuming it for the second:
+    parameters, optimizer state and step bit-identical on the card."""
     import torch
     from repro_torch import convert
     from repro_torch.checkpoint.checkpoint import _flatten
     from repro_torch.data import pipeline
     from repro_torch.train import trainer
-    cfg = lm_config(n_layers, "bfloat16")
+
+    def config(n):
+        return (family_config(arch, n) if arch
+                else lm_config(n, "bfloat16"))
+
+    cfg = config(n_layers)
     # one checkpoint: bf16 params widened to fp32, int8 moments, fp32 scales
     est = cfg.param_count() * (4 + 2 + 2 * 4 / 64)
     free = shutil.disk_usage(ROOT).free
     if free < 2.5 * est:           # two checkpoints at once, and a margin
         n_layers = 1
-        cfg = lm_config(1, "bfloat16")
+        cfg = config(1)
     root = ROOT / "build" / "train_resume"
     shutil.rmtree(root, ignore_errors=True)
     dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=B, seq=S, seed=seed + 24)
@@ -1854,8 +1937,9 @@ def phase_train_resume(seed, device, n_layers=TRAIN_CROSS_LAYERS, B=2,
     got = convert.train_state_to_numpy(resumed["state"])
     differ = [k for (k, a), (_, b) in zip(_flatten(got), _flatten(want))
               if not (a.shape == b.shape and (a == b).all())]
-    row = {"phase": "train", "part": "resume", "arch": cfg.arch_id,
-           "layers": [n_layers, lm_config().n_layers], "optimizer": "adam8bit",
+    row = {"phase": "train_families" if arch else "train", "part": "resume",
+           "arch": cfg.arch_id, "layers": [n_layers, config(None).n_layers],
+           "optimizer": "adam8bit",
            "B": B, "S": S, "steps": 2, "resumed_at": 1,
            "history_steps": [h["step"] for h in resumed["history"]],
            "differing_leaves": differ, "step": int(resumed["state"].step),
@@ -2384,6 +2468,376 @@ def phase_lm_families(seed, device):
         fail("lm_families: sketch_decode_attn was not launched")
     torch.cuda.empty_cache()
     return {"launches": launches, "kernel_rows": kernel_rows}
+
+
+# --------------------------------------------------------------------------
+# phase 3g: the other model families' training (train_families)
+# --------------------------------------------------------------------------
+
+class _CheckedMonitor:
+    """The `DriftMonitor` of a run, checked at every batch: its codes on
+    the card (`srp_hash`) against the plain version on the CPU (flips only
+    at sign boundaries), and its state after the commit
+    (`swakde_segment_pass`) bit for bit against a CPU twin fed the card's
+    codes through the plain commit, density within 1e-6.  Each observe
+    must launch each of the two kernels once and nothing else; the launches
+    of the checks themselves are not counted."""
+
+    def __init__(self, monitor, device, where):
+        from repro_torch.core import swakde
+        self.monitor, self.device, self.where = monitor, device, where
+        self.cpu_params = monitor.params._replace(
+            proj=monitor.params.proj.cpu(), mix=monitor.params.mix.cpu())
+        self.twin = swakde.swakde_init(monitor.cfg, "cpu")
+        self.flips, self.density_err, self.ms = 0, 0.0, []
+        self.launches = None
+
+    def observe(self, tokens):
+        from repro_torch.core import swakde
+        from repro_torch.core.util import mean_last
+        from repro_torch.kernels import ops
+        codes, n = _drift_codes_check(self.monitor, self.cpu_params, tokens,
+                                      self.device)
+        self.flips += n
+        codes = codes.cpu()
+        cfg = self.monitor.cfg
+        want = float(mean_last(swakde.swakde_row_estimates_from_codes(
+            self.twin, codes[-1], cfg)))
+        self.twin = swakde.swakde_commit_chunk(
+            self.twin, swakde.swakde_prepare_from_codes(codes[:-1], cfg), cfg)
+        before = dict(ops.LAUNCHES)
+        sync(self.device)
+        t0 = time.perf_counter()
+        drift = self.monitor.observe(tokens)          # ends in a host read
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        if per != {k: int(k in ("srp_hash", "swakde_segment_pass"))
+                   for k in ops.LAUNCHES}:
+            fail(f"{self.where}: the drift monitor launched {per}")
+        self.launches = {k: (self.launches or {}).get(k, 0) + v
+                         for k, v in per.items()}
+        differ = differing_leaves(self.monitor.state, self.twin)
+        err = abs(drift["density"] - want) / max(abs(want), 1e-30)
+        self.density_err = max(self.density_err, err)
+        if differ or err > 1e-6:
+            fail(f"{self.where}: the drift monitor's state differs from the "
+                 f"plain commit of its codes in {differ}, density "
+                 f"{drift['density']} against {want}")
+        return drift
+
+
+def family_train(seed, arch, n_layers, how, B, S, device, smi):
+    """``arch`` in bf16 at its published width (depth ``n_layers`` or all),
+    random weights from the seed, trained ``TRAIN_FAM_STEPS`` steps and one
+    profiled: through the `Trainer` (AdamW, the token stream and its drift
+    monitor, checked at every batch by `_CheckedMonitor`; no checkpoint
+    written), ``make_train_step`` (AdamW; frames or patches from
+    ``launch.inputs.make_batch``) or ``grads_and_metrics`` alone (no
+    optimizer).  Gates: finite loss and gradient norm at every step; no
+    kernel launched by a step; the monitor's launches, one ``srp_hash`` and
+    one ``swakde_segment_pass`` a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.checkpoint import tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import inputs
+    from repro_torch.models import model
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step as ts
+    from repro_torch.train import trainer
+    cfg = family_config(arch, n_layers)
+    steps = TRAIN_FAM_STEPS + 1
+    where = f"train_families {arch}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed + 60)
+    calls, prof_box = [], {}
+
+    def run_step(fn):
+        """One step (``fn`` returns the metrics last), the last one under
+        the profiler; no kernel may launch inside."""
+        calls.append(1)
+        before = dict(ops.LAUNCHES)
+        sync(device)
+        last = len(calls) == steps
+        acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
+                else [ProfilerActivity.CPU])
+        with (profile(activities=acts) if last
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            m = out[-1]
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            wall = time.perf_counter() - t0
+        if last:
+            prof_box.update(prof=prof)
+        if dict(ops.LAUNCHES) != before:
+            fail(f"{where}: step {len(calls)} launched a kernel")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{where}: step {len(calls)} loss {loss} grad norm {gnorm}")
+        rows.append({"step": len(calls), "ms": wall * 1e3, "loss": loss,
+                     "grad_norm": gnorm, "profiled": last})
+        return out
+
+    rows, monitor, state = [], None, None
+    t0 = time.perf_counter()
+    if how == "trainer":
+        ckpt_dir = ROOT / "build" / "train_families"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=B, seq=S,
+                                   seed=seed + 61)
+        tcfg = trainer.TrainerConfig(steps=steps, ckpt_every=10**9,
+                                     ckpt_dir=str(ckpt_dir), optimizer="adamw",
+                                     lr=TRAIN_LR, log_every=10**9)
+        tr = trainer.Trainer(cfg, dcfg, tcfg, device=device,
+                             log_fn=lambda s: None)
+        tr.ckpt = _TimedCheckpointer(write=False)
+        tr.monitor = monitor = _CheckedMonitor(tr.monitor, device, where)
+        step_fn = tr._step_fn
+        tr._step_fn = lambda state, batch: run_step(
+            lambda: step_fn(state, batch))
+        state = tr.run(seed=seed + 62)["state"]
+        params, init_s = state.params, None
+    elif how == "step":
+        step_fn, init = ts.make_train_step(cfg, adam.adamw(lr=TRAIN_LR))
+        state = init(gen, device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        for _ in range(steps):
+            batch = inputs.make_batch(cfg, B, S, gen)
+            state, m = run_step(lambda: step_fn(state, batch))
+        params = state.params
+    else:                       # one microbatch's gradients, no optimizer
+        params = model.init_params(cfg, gen, device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        for _ in range(steps):
+            batch = inputs.make_batch(cfg, B, S, gen)
+
+            def grads():
+                g, m = ts.grads_and_metrics(params, cfg, batch)
+                m["grad_norm"] = ts.grad_norm(g)
+                return m,
+
+            run_step(grads)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(params)
+    t1 = time.perf_counter()
+    busy_ms, n_ops, top = device_profile(prof_box.pop("prof"))
+    reduce_s = time.perf_counter() - t1
+    tokens = B * (S if cfg.family != "vlm" else S - cfg.n_patches)
+    steady = sorted(r["ms"] for r in rows[1:-1])
+    step_ms = steady[len(steady) // 2]
+    row = {"phase": "train_families", "arch": arch, "family": cfg.family,
+           "how": how, "nvidia_smi": smi, "dtype": cfg.param_dtype,
+           "layers_run": [cfg.n_layers, family_config(arch).n_layers],
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "B": B, "S": S,
+           "loss_tokens_per_step": tokens,
+           "params": sum(p.numel() for p in leaves),
+           "param_bytes": sum(p.numel() * p.element_size() for p in leaves),
+           "optimizer": None if how == "grads" else "adamw",
+           "remat": cfg.remat, "init_s": init_s, "steps": rows,
+           "step_ms_first": rows[0]["ms"], "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "loss_falling": rows[-1]["loss"] < rows[0]["loss"],
+           "peak_memory_bytes": peak,
+           "profiled_step_ms": rows[-1]["ms"], "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / rows[-1]["ms"],
+           "device_busy_over_median_step": busy_ms / step_ms,
+           "device_ops": n_ops, "profile_reduce_s": reduce_s,
+           "top_device_ops": top}
+    if cfg.family == "moe":
+        row["experts"] = [cfg.n_experts, cfg.moe_topk, cfg.n_shared_experts,
+                          cfg.capacity_factor]
+    if monitor is not None:
+        row.update(drift_ms=monitor.ms, launches=monitor.launches,
+                   monitor_code_flips=monitor.flips,
+                   monitor_state_equals_cpu=True,
+                   monitor_density_err_rel_max=monitor.density_err)
+        if monitor.launches["srp_hash"] != steps:
+            fail(f"{where}: the drift monitor ran {monitor.launches}")
+    emit(row)
+    del params, leaves, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+class _FollowRoutes:
+    """While installed, every MoE routing (`models.moe._route`) on the
+    CPU takes the expert ids the card chose for the same layer (``card``,
+    one entry a call, from a `_RouteLog`), its weights and aux loss
+    recomputed from its own probabilities at those ids.  An id that differs
+    must be a near tie (the two experts' CPU probabilities within
+    FAM_ROUTE_TIE of the larger): counted; any other fails.  So one fp32
+    rounding across a tie cannot move a token to another expert between
+    the two runs being compared."""
+
+    def __init__(self, card):
+        self.card, self.i, self.mism = card, 0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.util import fp32_reciprocal
+        from repro_torch.models import moe
+        self._orig = orig = moe._route
+
+        def route(router_w, x_flat, topk):
+            w, idx, aux = orig(router_w, x_flat, topk)
+            want = self.card[self.i][0].to(idx.device)
+            self.i += 1
+            probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
+            m, u = _route_ties([(want, None)], [(idx, probs.detach())])
+            if u:
+                fail(f"train_families: {u} expert ids differ between the "
+                     "card and the CPU away from a near tie")
+            if not m:
+                return w, idx, aux
+            self.mism += m
+            w = probs.gather(1, want)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            E = router_w.shape[1]
+            f = torch.zeros((E,), dtype=torch.float32, device=idx.device)
+            f.index_add_(0, want.reshape(-1),
+                         torch.ones((want.numel(),), dtype=torch.float32))
+            f = f * fp32_reciprocal(want.numel())
+            pbar = probs.sum(0) * fp32_reciprocal(probs.shape[0])
+            return w, want, E * torch.sum(f * pbar)
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+
+def family_train_cross_check(seed, arch, device, smi):
+    """``arch`` at full width in fp32 (TF32 off), depth cut to the family's
+    smallest unit (moe 1 dense + 1 MoE layer, hybrid one group, ssm one
+    pair, encdec 1 + 1, vlm 1 layer; deepseek-v3 at its ``smoke()`` width,
+    a full-width fp32 MoE layer being 45 GB a copy), B = 2 over
+    TRAIN_FAM_CROSS_S tokens (and the published frames or patches): the
+    loss and every gradient leaf of one ``grads_and_metrics`` on the card
+    against the CPU's plain path, from the same tree and batch (the CPU
+    follows the card's expert ids at near ties, `_FollowRoutes`).  Then the
+    tree cast to bf16 (FP32_LEAVES kept) on the card: the loss within 2e-2
+    relative and the whole gradient's cosine with the fp32 one at least
+    TRAIN_FAM_BF16_COSINE."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.launch import inputs
+    from repro_torch.models import model
+    from repro_torch.train import train_step as ts
+    full = family_config(arch)
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                                  param_dtype="float32")
+    else:
+        unit = {"moe": 2, "hybrid": full.attn_every, "ssm": 2, "encdec": 1,
+                "vlm": 1}[full.family]
+        cfg = family_config(arch, unit, "float32")
+    B, S = TRAIN_FAM_CROSS_B, TRAIN_FAM_CROSS_S
+    seq = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+    params = model.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed + 70), device)
+    batch = inputs.make_batch(cfg, B, seq,
+                              torch.Generator().manual_seed(seed + 71))
+    host = tree_map(lambda t: t.to("cpu", copy=True), params)
+    t0 = time.perf_counter()
+    with _RouteLog() as log:
+        g_dev, m_dev = ts.grads_and_metrics(
+            params, cfg, {k: v.to(device) for k, v in batch.items()})
+        sync(device)
+        card_s = time.perf_counter() - t0
+        card_routes = log.take()
+    t0 = time.perf_counter()
+    with _FollowRoutes(card_routes) as follow:
+        g_cpu, m_cpu = ts.grads_and_metrics(host, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    del host
+    loss_err = {k: abs(float(m_dev[k]) - float(m_cpu[k]))
+                / max(abs(float(m_cpu[k])), 1e-30) for k in m_cpu}
+    grad_err = {k: _leaf_err(a, b) for (k, a), (_, b) in
+                zip(_flatten(g_dev), _flatten(g_cpu))}
+    del g_cpu
+    grad_tol = TRAIN_FAM_SSD_TOL if cfg.family == "hybrid" else TRAIN_FAM_GRAD_TOL
+    # bf16 on the card from the same weights and batch
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+
+    def cast16(tree):
+        return {k: cast16(v) if isinstance(v, dict)
+                else v if k in FP32_LEAVES else v.bfloat16()
+                for k, v in tree.items()}
+
+    p16 = cast16(params)
+    g16, m16 = ts.grads_and_metrics(
+        p16, cfg16, {k: v.to(device) for k, v in batch.items()})
+    dots = torch.zeros(3, dtype=torch.float64, device=device)
+    for (_, x), (_, y) in zip(_flatten(g16), _flatten(g_dev)):
+        for a, b in zip(x.reshape(-1).split(2**26), y.reshape(-1).split(2**26)):
+            a, b = a.double(), b.double()
+            dots += torch.stack([a @ b, a @ a, b @ b])
+    ab, aa, bb = dots.tolist()
+    cos = ab / math.sqrt(aa * bb)
+    leaf_cos = {k: _cosine(x, y) for (k, x), (_, y) in
+                zip(_flatten(g16), _flatten(g_dev))}
+    row = {"phase": "train_families_cross_check", "arch": arch,
+           "nvidia_smi": smi, "family": cfg.family,
+           "layers": [cfg.n_layers, full.n_layers], "d_model": cfg.d_model,
+           "width": "smoke" if cfg.d_model != full.d_model else "published",
+           "B": B, "S": seq, "fp32_loss": float(m_dev["loss"]),
+           "metrics_err_rel": loss_err,
+           "grad_err_rel_max": max(grad_err.values()),
+           "grad_err_rel_worst_leaf": max(grad_err, key=grad_err.get),
+           "tolerance": [TRAIN_FAM_LOSS_TOL, grad_tol],
+           "route_near_ties_followed": follow.mism,
+           "bf16_loss": float(m16["loss"]),
+           "bf16_loss_err_rel": abs(float(m16["loss"]) - float(m_dev["loss"]))
+           / abs(float(m_dev["loss"])),
+           "bf16_grad_cosine": cos,
+           "bf16_grad_cosine_min_leaf": min(leaf_cos.values()),
+           "bf16_grad_cosine_worst_leaf": min(leaf_cos, key=leaf_cos.get),
+           "bf16_cosine_bound": TRAIN_FAM_BF16_COSINE,
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit(row)
+    if max(loss_err.values()) > TRAIN_FAM_LOSS_TOL \
+            or max(grad_err.values()) > grad_tol:
+        fail(f"train_families cross-check {arch}: card and CPU disagree "
+             f"({loss_err}, {row['grad_err_rel_worst_leaf']} "
+             f"{row['grad_err_rel_max']})")
+    if row["bf16_loss_err_rel"] > 2e-2 or cos < TRAIN_FAM_BF16_COSINE:
+        fail(f"train_families cross-check {arch}: bf16 too far from fp32 "
+             f"(loss {row['bf16_loss_err_rel']}, cosine {cos})")
+    del params, p16, g16, g_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_families(seed, device):
+    """Each configuration of TRAIN_FAMILY_RUNS in turn, its weights,
+    optimizer state and gradients freed before the next: the bf16 training
+    run at full width, then its fp32 card-vs-CPU and bf16-vs-fp32 checks at
+    cut depth; last the Trainer's resume on zamba2 at one group.  Returns
+    the drift monitor's launch counts."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    launches = {}
+    for arch, n_layers, how, B, S in TRAIN_FAMILY_RUNS:
+        row = family_train(seed, arch, n_layers, how, B, S, device, smi)
+        for name, n in row.get("launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+        family_train_cross_check(seed, arch, device, smi)
+    phase_train_resume(seed, device, n_layers=6, arch="zamba2-2.7b")
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -3687,9 +4141,9 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     * the kernels of one operation of each fleet (and of one query block of
       each S-ANN path) run again on the inputs the fleet gave them, against
       their plain versions on the card;
-    * each kind at T = 8 (cross-checked on the CPU) and T = 256: one launch
-      of the commit kernel an operation whatever T is, every tenant's row
-      its single-sketch loop's;
+    * each kind at T = 8 (cross-checked on the CPU), RACE and SW-AKDE also
+      at T = 256: one launch of the commit kernel an operation whatever T
+      is, every tenant's row its single-sketch loop's;
     * a profile window of 4 fleet chunks each."""
     import dataclasses
     import tempfile
@@ -3934,7 +4388,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
                                    ("swakde", make_sw, khost, kdata),
                                    ("sann", make_sann, shost, sdata)):
         gates[kind] = []
-        for T in FLEET_GATE_T:
+        for T in FLEET_SANN_GATE_T if kind == "sann" else FLEET_GATE_T:
             line, got = _fleet_gate(kind, T, make, host, data, seed, device)
             for k in launches:
                 launches[k] += got[k]
@@ -4300,51 +4754,22 @@ def _same_sann_answers(name, got_cr, want_cr, got_topk, want_topk):
             fail(f"{name}: distances outside rtol {RTOL}, atol {ATOL}")
 
 
-def rpc_frame_cap(cfg, shost, rc, device):
-    """An S-ANN RPC cluster at K = 2 whose worker snapshot is larger than
-    the protocol's frame cap: the first merge must be refused by the
-    worker, naming the cap, well inside the RPC timeout."""
-    from repro_torch.net import cluster as rpc
-    from repro_torch.net import protocol
-    with _rpc_open(lambda: rpc.RPCClusterRetrievalService(
-            cfg, num_workers=2, merge_every=RPC_MERGE_EVERY, rpc=rc,
-            device=device)) as (cl, start_s):
-        cl.ingest(shost[:CHUNK])
-        t0 = time.perf_counter()
-        try:
-            cl.merged_state()
-        except protocol.RemoteError as e:
-            refusal = str(e)
-        else:
-            fail("rpc retrieval: a snapshot past MAX_BODY went through")
-        refuse_s = time.perf_counter() - t0
-        if "MAX_BODY" not in refusal or refuse_s >= rc.rpc_timeout_s:
-            fail(f"rpc retrieval: the frame cap's refusal ({refuse_s:.1f} s)"
-                 f" does not name the cap: {refusal}")
-        snap_mb = _state_bytes(cl._template.state) / 1e6
-    return {"K": 2, "n_max": cfg.n_max, "start_s": start_s,
-            "snapshot_mb_per_worker": snap_mb, "refused_after_s": refuse_s,
-            "refusal": refusal[:300]}
-
-
-def phase_rpc_cluster(cluster_run, device, workers=CLUSTER_WORKERS,
-                      sann_nmax=RPC_SANN_NMAX, cap_nmax=RPC_CAP_NMAX):
+def phase_rpc_cluster(cluster_run, device, K=RPC_K, sann_nmax=RPC_SANN_NMAX):
     """The multi-process cluster (`repro_torch.net`): every worker a
     spawned process with its own CUDA context on the one card, the
     coordinator the in-process cluster's with `RemoteEngine` proxies,
     each chunk one RPC, each merge every worker's snapshot over TCP.  On
     the `cluster` phase's streams and configurations, fed the same way:
 
-    * `RPCClusterRACEService` at K = 1, 2, 4 (news shape, SRP): merged
-      counters and answers equal the in-process cluster's at the same K;
+    * `RPCClusterRACEService` at K = 4 (news shape, SRP): merged counters
+      and answers equal the in-process cluster's at the same K;
     * `RPCClusterKDEService` at K = 4 (eps 0.01, worker windows 65 536 /
       K): the gate stream, then the rest, each equal to the in-process
       cluster's state and answers;
     * `RPCClusterRetrievalService` at K = 4, SIFT shape, n_max 250 000 a
       worker (a snapshot must fit the protocol's 256 MiB frame): state,
       (c, r) and top-50 ids equal the in-process cluster's at the same
-      configuration, distances within the scorer's tolerance; at K = 2 and
-      n_max 1 000 000 the first snapshot must be refused, naming the cap;
+      configuration, distances within the scorer's tolerance;
     * durable RACE at K = 2: a ``net.send`` drop retried in place, every
       worker stopped and a fresh cluster recovered; worker 1 SIGKILLed
       mid-stream and respawned (bit-exact), and with ``respawn=False``
@@ -4364,39 +4789,33 @@ def phase_rpc_cluster(cluster_run, device, workers=CLUSTER_WORKERS,
     shost, qs = cluster_run["shost"], cluster_run["qs"]
     ccfg, n_race = cluster_run["ccfg"], cluster_run["n_race"]
     rc = rpc.RPCConfig(rpc_timeout_s=RPC_TIMEOUT_S)
-    out = {"phase": "rpc_cluster", "workers": list(workers),
+    out = {"phase": "rpc_cluster", "workers": K,
            "call_rows": SERVICE_CALL_ROWS, "rpc_timeout_s": RPC_TIMEOUT_S,
            "max_body": protocol.MAX_BODY}
     coord = {k: 0 for k in ops.LAUNCHES}        # the coordinator's launches
     in_workers = {k: 0 for k in ops.LAUNCHES}   # the worker processes'
 
-    # --- RACE at the news shape, K = 1, 2, 4 ------------------------------
-    rows = []
-    for K in workers:
-        with _rpc_open(lambda: rpc.RPCClusterRACEService(
-                ccfg, num_workers=K, merge_every=8, rpc=rc,
-                device=device)) as (cl, start_s):
-            ops.reset_launches()
-            secs = _cluster_feed(cl, khost[:n_race], device)
-            pull_ms, fold_ms = _timed_rpc_merge(cl, device)
-            got = cl.query(kqs)
-            q_rate = _timed_queries(cl.query, kqs, device)
-            _add_launches(coord)
-            _worker_launches(cl, in_workers, ("srp_hash", "race_hist"),
-                             device)
-            want_state, want = cluster_run["race"][K]
-            _same_state(f"rpc race K={K}", inprocess=want_state,
-                        rpc=cl.merged_state())
-            _same_answers(f"rpc race K={K}", got, want)
-        rows.append({"K": K, "points": n_race, "start_s": start_s,
-                     "ingest_s": secs, "points_per_s": n_race / secs,
-                     "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
-                     "queries_per_s": q_rate,
-                     "equals_inprocess_cluster": True})
-    out["race"] = rows
+    # --- RACE at the news shape, K = 4 ------------------------------------
+    with _rpc_open(lambda: rpc.RPCClusterRACEService(
+            ccfg, num_workers=K, merge_every=8, rpc=rc,
+            device=device)) as (cl, start_s):
+        ops.reset_launches()
+        secs = _cluster_feed(cl, khost[:n_race], device)
+        pull_ms, fold_ms = _timed_rpc_merge(cl, device)
+        got = cl.query(kqs)
+        q_rate = _timed_queries(cl.query, kqs, device)
+        _add_launches(coord)
+        _worker_launches(cl, in_workers, ("srp_hash", "race_hist"), device)
+        want_state, want = cluster_run["race"][K]
+        _same_state(f"rpc race K={K}", inprocess=want_state,
+                    rpc=cl.merged_state())
+        _same_answers(f"rpc race K={K}", got, want)
+    out["race"] = {"K": K, "points": n_race, "start_s": start_s,
+                   "ingest_s": secs, "points_per_s": n_race / secs,
+                   "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
+                   "queries_per_s": q_rate, "equals_inprocess_cluster": True}
 
     # --- SW-AKDE at the news shape, eps 0.01, K = 4 -----------------------
-    K = max(workers)
     n_kde, n_long = cluster_run["n_kde"], khost.shape[0]
     kcfg = dataclasses.replace(cluster_run["kcfg"],
                                window=CLUSTER_KDE_WINDOW // K)
@@ -4467,10 +4886,6 @@ def phase_rpc_cluster(cluster_run, device, workers=CLUSTER_WORKERS,
                         "n_stored": n_stored, "cr_queries_per_s": cr_rate,
                         "topk_queries_per_s": topk_rate,
                         "equals_inprocess_cluster": True}
-
-    out["frame_cap"] = rpc_frame_cap(
-        dataclasses.replace(cluster_run["rcfg"], n_max=cap_nmax), shost, rc,
-        device)
 
     # --- durability and failover (RACE, K = 2) ----------------------------
     part = khost[:cluster_run["n_durable"]]
@@ -5188,7 +5603,8 @@ def main(argv=None) -> int:
                     help="1 (default): every phase, the sharding phase on "
                     "one card repeated; N > 1: only the sharding phase (and "
                     "the phases it reads) on cards 0..N-1")
-    ap.add_argument("--only", choices=["train", "lm_families"],
+    ap.add_argument("--only", choices=["train", "lm_families",
+                                       "train_families"],
                     help="run only this phase (after the device phase)")
     args = ap.parse_args(argv)
 
@@ -5223,9 +5639,14 @@ def main(argv=None) -> int:
             emit({"phase": "kernel_check", **row})
         emit(ok_line)
         return 0
+    if args.only == "train_families":
+        timed(phase_train_families, args.seed, device)
+        emit(ok_line)
+        return 0
     if args.cards == 1:
         train_run = timed(phase_train, args.seed, device)
         families_run = timed(phase_lm_families, args.seed, device)
+        train_families_run = timed(phase_train_families, args.seed, device)
     sann_run = timed(phase_sann, args.seed, device)
     kde_run = timed(phase_kde, args.seed, device)
     srp_run = timed(phase_srp_kde, args.seed, kde_run, device)
@@ -5304,6 +5725,8 @@ def main(argv=None) -> int:
             "sharding_launches": sharding_run["launches"][row["name"]],
             "train_launches": train_run["launches"][row["name"]],
             "families_launches": families_run["launches"].get(row["name"], 0),
+            "train_families_launches": train_families_run["launches"].get(
+                row["name"], 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,3 +1,3 @@
-"""The language-model stack: layers, flash attention, dense-family init and
-forward."""
+"""The language-model stack: layers, flash attention, init and forward of
+every family."""
 from . import flash, layers, model  # noqa: F401

@@ -1,11 +1,12 @@
 """Multi-head Latent Attention (deepseek-v3) [arXiv:2412.19437].
 
-Counterpart of the reference's ``models/mla.py`` for decode: the KV of a
-token is compressed to a ``d_c``-dim latent plus one shared rotary key, and
-queries go through their own ``d_cq`` latent.  The decode (``serve/
-serve_step.py``, ``_mla_decode_block``) scores queries against the latent
-cache directly (the *absorbed* form).  The reference's ``mla_attention``
-(training and prefill) is not ported yet (``ROADMAP.md``, queue 1).
+Counterpart of the reference's ``models/mla.py``: the KV of a token is
+compressed to a ``d_c``-dim latent plus one shared rotary key, and queries
+go through their own ``d_cq`` latent.  Training (`mla_attention`) builds
+per-head keys and values from the latent and runs the flash attention with
+``dqk = dh + r`` and ``dv = dh``; the decode (``serve/serve_step.py``,
+``_mla_decode_block``) scores queries against the latent cache directly
+(the *absorbed* form).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 import torch
 
 from . import layers
+from .flash import flash_attention
 
 
 def init_mla(gen, d_model: int, n_heads: int, head_dim: int, d_c: int,
@@ -70,3 +72,25 @@ def mla_queries(params, x, positions, *, n_heads: int, head_dim: int,
         q = (x @ params["w_q"]).reshape(B, S, H, dh + r)
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     return q_nope, _rope(q_rope, positions, rope_theta)
+
+
+def mla_attention(params, x, positions, *, n_heads: int, head_dim: int,
+                  rope_dim: int, rope_theta: float, norm_eps: float = 1e-6):
+    """Training / prefill path: per-head ``k_nope`` and ``v`` from the
+    latent, the rotary key shared by every head, causal flash attention.
+    Returns ``(out (B, S, d), (latent c, rotary key kr))``, the cache
+    pair."""
+    B, S, _ = x.shape
+    H, dh, r = n_heads, head_dim, rope_dim
+    c, kr = mla_latent(params, x, positions, rope_dim=r,
+                       rope_theta=rope_theta, norm_eps=norm_eps)
+    q_nope, q_rope = mla_queries(
+        params, x, positions, n_heads=H, head_dim=dh, rope_dim=r,
+        rope_theta=rope_theta, norm_eps=norm_eps)
+    k_nope = (c @ params["w_uk"]).reshape(B, S, H, dh)
+    v = (c @ params["w_uv"]).reshape(B, S, H, dh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, r)], dim=-1)
+    out = flash_attention(q, k, v, causal=True)     # dv = dh < dqk = dh + r
+    out = out.reshape(B, S, H * dh) @ params["w_o"]
+    return out, (c, kr)

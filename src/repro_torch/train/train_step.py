@@ -1,17 +1,22 @@
 """The training step: next-token cross-entropy, its gradients, the optimizer.
 
-The port of the reference's ``train/train_step.py`` for the dense family
-(the MoE auxiliary loss and the MTP term go with their families).
-``make_train_step(cfg, optimizer)`` returns ``(train_step, init_state)``;
-``train_step(state, batch)`` updates ``state``'s parameters and optimizer
-state in place and returns the next `TrainState` with its metrics (0-d
-tensors on the device: ``ce``, ``moe_aux``, ``loss``, ``grad_norm``).
+The port of the reference's ``train/train_step.py`` for every family: the
+next-token cross-entropy, plus the MoE auxiliary loss, plus for a model
+with an MTP head ``mtp_coef`` times the cross-entropy of its predictions
+two positions ahead.  ``make_train_step(cfg, optimizer)`` returns
+``(train_step, init_state)``; ``train_step(state, batch)`` updates
+``state``'s parameters and optimizer state in place and returns the next
+`TrainState` with its metrics (0-d tensors on the device: ``ce``,
+``moe_aux``, ``mtp_ce`` with an MTP head, ``loss``, ``grad_norm``).
 
 Gradients: the backward writes every parameter's gradient into a buffer
-shaped like the parameter tree.  Each layer of a stacked leaf is a leaf of
-its own (a view of the stack that takes gradients), so the backward of one
-layer never builds a gradient the size of the whole stack; each layer's
-gradient lands in its slice of the buffer.  With ``grad_microbatches > 1``
+shaped like the parameter tree.  Each layer of a stacked tree is a leaf of
+its own (a view of the stack that takes gradients; each layer of each
+group for the hybrid's ``(groups, attn_every, ...)`` stack), so the
+backward of one layer never builds a gradient the size of the whole stack;
+each layer's gradient lands in its slice of the buffer.  Leaves that are
+not stacked (``shared_attn``, ``mtp``, ``patch_proj``, ``enc_ln_f``, the
+embedding) stay whole: a block used several times sums its gradients.  With ``grad_microbatches > 1``
 the batch is split along its rows and the per-microbatch gradients are
 summed in ``grad_accum_dtype`` and averaged in float32, as the reference's
 scan does.
@@ -76,19 +81,34 @@ def chunked_xent(hidden: torch.Tensor, emb_params, targets: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """``(loss, metrics)`` of ``batch["tokens"]`` predicting itself one
-    position ahead."""
+    position ahead (and, with an MTP head, two positions ahead)."""
     hidden, aux = model_lib.forward(params, cfg, batch, return_hidden=True)
     tokens = batch["tokens"]
-    loss = chunked_xent(hidden[:, :-1], params["embedding"], tokens[:, 1:],
-                        cfg.final_softcap)
+    emb = params["embedding"]
+    loss = chunked_xent(hidden[:, :-1], emb, tokens[:, 1:], cfg.final_softcap)
     total = loss + aux["moe_aux"]
-    return total, {"ce": loss, "moe_aux": aux["moe_aux"], "loss": total}
+    metrics = {"ce": loss, "moe_aux": aux["moe_aux"]}
+    if "mtp_hidden" in aux and cfg.mtp_depth:
+        # depth-1 MTP predicts token t+2 from position t
+        mtp = chunked_xent(aux["mtp_hidden"][:, :-2], emb, tokens[:, 2:],
+                           cfg.final_softcap)
+        total = total + cfg.mtp_coef * mtp
+        metrics["mtp_ce"] = mtp
+    metrics["loss"] = total
+    return total, metrics
 
 
-def _grad_leaves(params, grads, n_layers: int) -> dict:
+# the stacked trees of every family and their number of stacked axes
+STACKED = {"blocks": 1, "dense_blocks": 1, "moe_blocks": 1, "mamba_blocks": 2,
+           "mlstm_blocks": 1, "slstm_blocks": 1, "enc_blocks": 1,
+           "dec_blocks": 1}
+
+
+def _grad_leaves(params, grads) -> dict:
     """A tree like ``params`` whose leaves share the parameters' storage and
-    take gradients into the matching tensors of ``grads``; its ``blocks``
-    is a list of per-layer trees."""
+    take gradients into the matching tensors of ``grads``; each stacked
+    tree (`STACKED`) is a list of per-layer trees (``mamba_blocks`` a list
+    of groups, each a list of layers)."""
     def leaf(p, g):
         t = p.detach().requires_grad_()
         t.grad = g
@@ -98,19 +118,24 @@ def _grad_leaves(params, grads, n_layers: int) -> dict:
         return {k: pair(a[k], b[k]) if isinstance(a[k], Mapping)
                 else leaf(a[k], b[k]) for k in a}
 
-    out = pair({k: v for k, v in params.items() if k != "blocks"},
-               {k: v for k, v in grads.items() if k != "blocks"})
-    out["blocks"] = [pair(model_lib.layer_params(params["blocks"], i),
-                          model_lib.layer_params(grads["blocks"], i))
-                     for i in range(n_layers)]
-    return out
+    def split(a, b, axes: int):
+        if not axes:
+            return pair(a, b)
+        n = tree_leaves(a)[0].shape[0]
+        return [split(model_lib.layer_params(a, i),
+                      model_lib.layer_params(b, i), axes - 1)
+                for i in range(n)]
+
+    return {k: split(v, grads[k], STACKED[k]) if k in STACKED
+            else pair(v, grads[k]) if isinstance(v, Mapping)
+            else leaf(v, grads[k]) for k, v in params.items()}
 
 
 def grads_and_metrics(params, cfg: ModelConfig, batch: dict):
     """``(grads, metrics)`` of one batch: grads a tree like ``params`` in
     the parameters' dtypes, metrics detached 0-d tensors."""
     grads = tree_map(torch.zeros_like, params)
-    leaves = _grad_leaves(params, grads, cfg.n_layers)
+    leaves = _grad_leaves(params, grads)
     with torch.enable_grad():
         loss, metrics = loss_fn(leaves, cfg, batch)
         torch.autograd.backward(loss, inputs=tree_leaves(leaves))
@@ -143,6 +168,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
     def accumulate(params, batch):
         if n_micro == 1:
             return grads_and_metrics(params, cfg, batch)
+        if batch["tokens"].shape[0] % n_micro:
+            raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does "
+                             f"not split into {n_micro} microbatches")
         rows = batch["tokens"].shape[0] // n_micro
         g_acc = m_acc = None
         for i in range(n_micro):

@@ -30,7 +30,8 @@ stores every bin in one launch (one code a row, codes out of range, a
 ragged batch, an empty batch, W wide enough for bin tiles).  The training
 path: the flash attention `Function` against autograd through a dense
 masked softmax, the drift monitor's one chunk a batch against the
-per-example SW-AKDE updates, and a train step that repeats bit for bit.
+per-example SW-AKDE updates, a train step that repeats bit for bit, and
+one train step of each other family's smoke config equal to the CPU's.
 """
 import pytest
 import torch
@@ -1181,3 +1182,60 @@ def test_family_decode_on_the_card_matches_the_cpu(dev, arch):
             torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                        atol=1e-5 * float(want.float().abs().max()),
                                        msg=name)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b",
+                                  "zamba2-2.7b", "xlstm-125m",
+                                  "whisper-large-v3", "internvl2-76b"])
+def test_family_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """Each trained family's smoke config in float32, one tree and one
+    batch of 8 rows (``launch.inputs.make_batch``: tokens, and the
+    frontends' frames or patches; deepseek-v3 accumulates its 8
+    microbatches in bf16, as published) on the card and on the CPU: the
+    gradients of
+    ``grads_and_metrics`` within 1e-4 of their largest entry (zamba2's
+    within one bf16 ulp, 2^-8: its Mamba2 scores round to bf16 in both),
+    then one AdamW step of ``make_train_step``: every metric within 1e-5
+    relative (the grad norm 1e-4) and every parameter within twice the
+    step's learning rate (lr_t = 2e-5 at the first step of a 100-step
+    warmup): the step moves a parameter by lr_t times ``g / (|g| + eps)``
+    plus the same decay on both, so an element whose gradients lie in
+    Adam's eps region on the two devices may move up to 2 lr_t apart."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import _flatten, tree_map
+    from repro_torch.configs import registry
+    from repro_torch.launch import inputs
+    from repro_torch.models import model
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              param_dtype="float32")
+    cpu = torch.device("cpu")
+    seq = 64 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = inputs.make_batch(cfg, 8, seq, torch.Generator().manual_seed(3))
+    params = model.init_params(cfg, torch.Generator().manual_seed(4), cpu)
+    trees = {cpu: params, dev: tree_map(lambda t: t.to(dev, copy=True), params)}
+    batches = {d: {k: v.to(d) for k, v in batch.items()} for d in (cpu, dev)}
+    grads = {d: train_step.grads_and_metrics(trees[d], cfg, batches[d])[0]
+             for d in (cpu, dev)}
+    tol = 2.0 ** -8 if cfg.family == "hybrid" else 1e-4
+    for (k, want), (_, got) in zip(_flatten(grads[cpu]), _flatten(grads[dev])):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=tol * float(want.abs().max()), msg=k)
+    metrics = {}
+    for d in (cpu, dev):
+        step, _ = train_step.make_train_step(cfg, adam.adamw(lr=1e-3))
+        p = trees[d]
+        state = train_step.TrainState(p, adam.adamw(lr=1e-3).init(p),
+                                      torch.zeros((), dtype=torch.int32,
+                                                  device=d))
+        state, metrics[d] = step(state, batches[d])
+        trees[d] = state.params
+    for k, want in metrics[cpu].items():
+        rtol = 1e-4 if k == "grad_norm" else 1e-5
+        assert abs(float(metrics[dev][k]) - float(want)) <= rtol * abs(float(want)) + 1e-12, k
+    lr_t = float(adam._step_scalars(torch.ones((), dtype=torch.int32), 1e-3,
+                                    0.9, 0.95, 100)[0])
+    for (k, want), (_, got) in zip(_flatten(trees[cpu]), _flatten(trees[dev])):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2 * lr_t + 1e-7, msg=k)

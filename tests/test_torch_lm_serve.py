@@ -181,15 +181,16 @@ def test_sketch_decode_bf16_within_reference_bound(monkeypatch):
 
 
 def test_registry_lists_only_ported_configs():
-    """Every architecture of the reference is listed and decodes; what the
-    port still refuses is the forward (and so training) of the families
-    other than dense, and the MoE layer under a mesh (expert parallelism)."""
+    """Every architecture of the reference is listed, decodes and runs its
+    forward (deepseek-v3's with the MTP head); what the port still refuses
+    is the MoE layer under a mesh (expert parallelism)."""
     assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS)
     cfg = tregistry.get_smoke_config("deepseek-v3-671b")
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.forward(params, cfg, {"tokens": tokens})
+    with torch.no_grad():
+        logits, aux = tmodel.forward(params, cfg, {"tokens": tokens})
+    assert logits.shape == aux["mtp_logits"].shape == (1, 4, cfg.vocab)
     x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmoe.moe(tmodel.layer_params(params["moe_blocks"], 0)["moe"], x,
