@@ -6,6 +6,8 @@
     python3 chip_smoke.py --only train          # the training phase alone
     python3 chip_smoke.py --only lm_families    # the other families' decode
     python3 chip_smoke.py --only train_families # the other families' training
+    python3 chip_smoke.py --only lm_mesh        # LM training on a 2 x 2 mesh
+    python3 chip_smoke.py --only lm_mesh --cards 4  # ... on cards 0..3
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 ``build/repro_torch/``), then drives the main path through the entry points a
@@ -21,9 +23,9 @@ user calls, at full width:
   profiled step; the monitor's codes against the CPU under the flip rule
   and its state against a CPU twin.  Then, at full width with the depth
   cut to 2 layers: the fp32 step's loss, gradients and AdamW update
-  against the CPU's (TF32 off), the bf16 step against the fp32 one, and
-  the resumable ``Trainer`` (Adam8bit) interrupted after a step and
-  resumed from its checkpoint, bit-identical to an unbroken run.  The
+  against the CPU's (TF32 off) and the bf16 step against the fp32 one
+  (the ``Trainer``'s resume here is cut for time; ``train_families``
+  resumes it on zamba2).  The
   flash attention ``Function`` against dense attention at gemma3-4b's
   heads (global and 1024-window layers, fp32), the embedding gather's two
   backwards run twice and timed, and attention forward + backward against
@@ -68,6 +70,21 @@ user calls, at full width:
   leaf; deepseek-v3 at its smoke width), bf16 against fp32 on the card
   (gradient cosine), and the ``Trainer``'s resume on zamba2 at one group
   (Adam8bit), bit-identical to an unbroken run;
+* **LM training on a (data, model) mesh** (``lm_mesh``, next): one card
+  repeated as a 2 x 2 mesh.  fp32 (TF32 off) at full width, depth cut to
+  each family's smallest unit (qwen3-4b 1 layer; deepseek-moe-16b 1 dense
+  + 1 MoE, ``moe_ep``, dropless), one AdamW step (lr 1e-3, no warmup)
+  sharded by ``param_specs`` against the unsharded step on the same card
+  at the reference's bounds (loss 2e-4; parameters rtol 2e-4, atol 2e-5),
+  every gradient leaf and the gradient norm against the unsharded ones,
+  the MoE aux against the per-shard estimate; ``moe_ep`` against ``moe_dense``
+  at deepseek-moe-16b's published width (one bf16 layer); the compressed
+  all-reduce's 20-step bound; then deepseek-moe-16b in bf16 at published
+  width (6 of 28 layers: four shards of the whole model on one card)
+  through the ``Trainer`` on the mesh (AdamW, the drift monitor, B = 2 x
+  S = 4096, 2 steps and one profiled).  With ``--cards 4`` (cards 0..3,
+  data 2 x model 2): the same gates but the compressed all-reduce's
+  across cards, then all 28 layers;
 * **S-ANN at SIFT1M scale** (ann-benchmarks ``sift-128-euclidean``: 1 000 000
   base vectors, 10 000 queries, d = 128; synthetic SIFT-like data drawn on
   the device): ``sann_insert_chunked`` in chunks of 4096, then
@@ -139,7 +156,7 @@ user calls, at full width:
   snapshot must fit the protocol's 256 MiB frame), each equal bit for bit
   to the in-process cluster on the same stream; a durable K = 2 RACE cluster
   with a dropped ``net.send`` retried in place, stopped and recovered; a
-  SIGKILLed worker respawned and recovered, and with respawn off salvaged.
+  SIGKILLed worker respawned and recovered.
   Each worker process must launch its commit kernels (its ``K_STATS``
   reply), and no worker process may outlive ``close()``;
 * **sketch sharding** (``parallel/sketch_sharding.py``) on a mesh of K = 4
@@ -288,6 +305,40 @@ TRAIN_FAM_CROSS_B, TRAIN_FAM_CROSS_S = 2, 128
 TRAIN_FAM_LOSS_TOL, TRAIN_FAM_GRAD_TOL = 1e-5, 1e-4
 TRAIN_FAM_SSD_TOL = 2.0 ** -8
 TRAIN_FAM_BF16_COSINE = 0.99
+# lm_mesh: LM training on a (data, model) mesh.  The fp32 gates (TF32 off)
+# at full width, depth cut to each family's smallest unit (qwen3-4b 1
+# layer, deepseek-moe-16b 1 dense + 1 MoE), MESH_GATE_B x MESH_GATE_S
+# tokens: the sharded step against the unsharded step on the same card at
+# the reference's bounds (tests/test_distributed.py): loss (MoE: the
+# cross-entropy; its aux against the per-shard estimate) within
+# MESH_LOSS_TOL, every parameter within rtol MESH_RTOL, atol MESH_ATOL,
+# after one AdamW step at MESH_GATE_LR with no warmup (it moves a parameter
+# 50 times MESH_ATOL, so the bound can fail); the gradients (AdamW's first
+# moment after the step) leaf by leaf within MESH_GRAD_TOL of each leaf's
+# largest, the gradient norm within MESH_GRAD_TOL relative (MoE: the ranks'
+# bf16 combine, moe_ep's bf16 bound 2e-2; the router 1e-1, as it takes the
+# gradient of the per-shard aux, an estimate of the unsharded one); where
+# the two gradients differ by more than half the unsharded one (their
+# signs may differ) or the unsharded one is under 100 eps, the step's
+# update g / (|g| + eps) may take either sign, and the parameter is held
+# within the bound plus 2 MESH_GATE_LR.  The MoE gate runs dropless
+# (capacity factor n_experts / topk: C = T), so the ranks' local
+# capacities drop nothing either.  moe_ep against
+# moe_dense at deepseek-moe-16b's published width, one layer in bf16, over
+# MESH_EP_B x MESH_EP_S tokens at capacity factor 64 (the reference's
+# bounds: rtol / atol 2e-2, mean error < 5e-3; aux equal to the per-shard
+# estimate).  The compressed all-reduce's 20-step error-feedback bound.
+# Then bf16 at published width through the Trainer (AdamW, the drift
+# monitor, no checkpoint), B x S = MESH_RUN_B x MESH_RUN_S: deepseek-moe-16b
+# cut to MESH_RUN_LAYERS layers on one card repeated as a 2 x 2 mesh (four
+# shards of the whole model on one card), or all 28 on cards 0..3
+MESH_SHAPE = (2, 2)
+MESH_GATE_B, MESH_GATE_S = 4, 256
+MESH_LOSS_TOL, MESH_RTOL, MESH_ATOL = 2e-4, 2e-4, 2e-5
+MESH_GATE_LR = 1e-3
+MESH_GRAD_TOL = {"dense": 1e-4, "moe": 2e-2, "router": 1e-1}
+MESH_EP_B, MESH_EP_S = 2, 512
+MESH_RUN_B, MESH_RUN_S, MESH_RUN_LAYERS, MESH_RUN_STEPS = 2, 4096, 6, 2
 
 # the services phase: rows a producer hands `ingest_async` per call (16
 # chunks), the snapshot cadence, closed-loop clients, rows the RACE delete
@@ -2042,11 +2093,12 @@ def phase_train_yardstick(device, B=TRAIN_B, S=TRAIN_S, iters=3):
 
 def phase_train(seed, device):
     """The training path: the full run, the flash check, the cross-checks,
-    the Trainer's resume, the embedding backward and the SDPA yardstick."""
+    the embedding backward and the SDPA yardstick.  (gemma3-4b's `Trainer`
+    resume, a 9.4 GB checkpoint, is cut for time: `train_families` resumes
+    the `Trainer` on zamba2.)"""
     run = phase_train_full(seed, device)
     phase_train_flash(device)
     phase_train_cross_check(seed, device)
-    phase_train_resume(seed, device)
     phase_train_embedding(device)
     phase_train_yardstick(device)
     return run
@@ -2838,6 +2890,394 @@ def phase_train_families(seed, device):
     phase_train_resume(seed, device, n_layers=6, arch="zamba2-2.7b")
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# lm_mesh: LM training on a (data, model) mesh
+# --------------------------------------------------------------------------
+
+def sync_all():
+    """Wait for every visible card (a mesh may span them)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _mesh_cards(mesh) -> list:
+    return sorted({d.index for d in mesh.devices})
+
+
+def _reckon_mesh_bytes(cfg, mesh) -> dict:
+    """Each card's bytes of weights, gradients and AdamW's two float32
+    moments, from `param_specs` over the global shapes (meta tensors): a
+    rank holds its block of every leaf, a leaf that does not split whole."""
+    import torch
+    from repro_torch.models import layers, model
+    from repro_torch.parallel import param_specs, sharding
+    normal = layers._normal
+    layers._normal = lambda gen, shape, scale, dtype, device: torch.empty(
+        shape, dtype=dtype, device=device)
+    try:
+        tree = model.init_params(cfg, torch.Generator(), "meta")
+    finally:
+        layers._normal = normal
+    specs = param_specs.param_shardings(tree, mesh,
+                                        fsdp_over_pod=cfg.fsdp_over_pod)
+    per_rank = [0] * mesh.size
+    for _, x, spec in param_specs.leaves_with_paths(tree, specs):
+        for r in range(mesh.size):
+            n = math.prod(sz for _, sz in sharding._blocks(
+                tuple(x.shape), spec, mesh, r))
+            per_rank[r] += n * (2 * x.element_size() + 8)
+    cards = {}
+    for r, d in enumerate(mesh.devices):
+        cards[d.index] = cards.get(d.index, 0) + per_rank[r]
+    return cards
+
+
+def _route_capture():
+    """Records every rank's MoE input as `models.moe.moe_ranks` sees it."""
+    from repro_torch.models import moe
+    inputs, orig = [], moe.moe_ranks
+
+    def capture(params, xs, mesh, **kw):
+        inputs.append([x.detach() for x in xs])
+        return orig(params, xs, mesh, **kw)
+    return inputs, orig, capture
+
+
+def _per_shard_aux(cfg, params, inputs, nm):
+    """The reference's per-shard estimate of the aux loss: each MoE
+    layer's router on every rank's own input (`moe._route`), averaged over
+    the ranks, summed over the layers, times ``moe_aux_coef / nm``."""
+    from repro_torch.models import moe
+    total = 0.0
+    for i in range(nm):
+        router = params["moe_blocks"]["moe"]["router"][i]
+        vals = [float(moe._route(router.to(x.device),
+                                 x.reshape(-1, x.shape[-1]), cfg.moe_topk)[2])
+                for x in inputs[i]]
+        total += sum(vals) / len(vals)
+    return total * cfg.moe_aux_coef / nm
+
+
+def mesh_step_gate(seed, arch, mesh, device, smi):
+    """``arch`` in fp32 at its published width, depth cut to the family's
+    smallest unit: one AdamW step of the same state and batch unsharded
+    on ``device`` and sharded on ``mesh``; loss and every parameter within
+    the reference's bounds; the MoE aux against the per-shard estimate."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.models import model, moe
+    from repro_torch.optim import adam
+    from repro_torch.parallel import param_specs
+    from repro_torch.train import train_step as ts
+    cfg = family_config(arch, 1 if arch == "qwen3-4b" else 2, "float32")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_topk)
+    where = f"lm_mesh gate {arch}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(seed + 80)
+    params = model.init_params(cfg, gen, device)
+    tokens = torch.from_numpy(_train_tokens(cfg, MESH_GATE_B, MESH_GATE_S,
+                                            seed + 81))
+    opt = adam.adamw(lr=MESH_GATE_LR, warmup=1)
+    mstep, _ = ts.make_train_step(cfg, opt, mesh)
+    sharded = param_specs.shard_params(params, mesh)
+    mstate = ts.TrainState(params=sharded,
+                           opt_state=adam.init_on_mesh(opt, sharded),
+                           step=torch.zeros((), dtype=torch.int32,
+                                            device=mesh.devices[0]))
+    inputs, orig, capture = _route_capture()
+    moe.moe_ranks = capture
+    try:
+        sync_all()
+        t0 = time.perf_counter()
+        mstate, mm = mstep(mstate, {"tokens": tokens})
+        sync_all()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe.moe_ranks = orig
+    want_aux = (_per_shard_aux(cfg, params, inputs,
+                               cfg.n_layers - cfg.n_dense_layers)
+                if cfg.family == "moe" else 0.0)
+    del inputs
+    step, _ = ts.make_train_step(cfg, opt)
+    state = ts.TrainState(params=params, opt_state=opt.init(params),
+                          step=torch.zeros((), dtype=torch.int32, device=device))
+    sync(device)
+    t0 = time.perf_counter()
+    state, m = step(state, {"tokens": tokens.to(device)})
+    sync(device)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    got = param_specs.gather_params(mstate.params)
+    got_m = param_specs.gather_params(mstate.opt_state.m)
+    gtol = lambda k: MESH_GRAD_TOL["router" if k.endswith("router")
+                                   else cfg.family]
+    worst_abs, worst_ratio, worst_grad, sign_free = 0.0, 0.0, 0.0, 0
+    for (k, a), (_, b), (_, ga), (_, gb) in zip(
+            _flatten(got), _flatten(state.params), _flatten(got_m),
+            _flatten(state.opt_state.m)):
+        b, gb = b.float().to(a.device), gb.to(a.device)
+        top = float(gb.abs().max())
+        worst_grad = max(worst_grad, float((ga - gb).abs().max())
+                         / max(top, 1e-30) / gtol(k))
+        free = ((ga - gb).abs() > 0.5 * gb.abs()) | (gb.abs() <= 1e-7)
+        d = (a.float() - b).abs()
+        strict = d / (MESH_ATOL + MESH_RTOL * b.abs())
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_ratio = max(worst_ratio, float((d / (
+            MESH_ATOL + MESH_RTOL * b.abs()
+            + torch.where(free, 2 * MESH_GATE_LR, 0.0))).max()))
+        sign_free += int(((strict > 1) & free).sum())
+    gn_err = abs(float(mm["grad_norm"]) / float(m["grad_norm"]) - 1)
+    gn_tol = MESH_GRAD_TOL[cfg.family]
+    key = "ce" if cfg.family == "moe" else "loss"
+    loss_err = abs(float(mm[key]) - float(m[key]))
+    aux_err = (abs(float(mm["moe_aux"]) - want_aux) / max(abs(want_aux), 1e-30)
+               if cfg.family == "moe" else 0.0)
+    row = {"phase": "lm_mesh", "part": "fp32_gate", "arch": arch,
+           "nvidia_smi": smi, "mesh": dict(mesh.shape),
+           "cards": _mesh_cards(mesh), "layers_run": cfg.n_layers,
+           "B": MESH_GATE_B, "S": MESH_GATE_S,
+           "capacity_factor": cfg.capacity_factor if cfg.family == "moe" else None,
+           "loss_single": float(m["loss"]), "loss_sharded": float(mm["loss"]),
+           f"{key}_abs_err": loss_err, "param_max_abs_err": worst_abs,
+           "param_err_over_bound": worst_ratio,
+           "params_free_sign_over_strict_bound": sign_free,
+           "grad_err_over_bound": worst_grad, "grad_tol": MESH_GRAD_TOL,
+           "grad_norm_rel_err": gn_err, "lr": MESH_GATE_LR,
+           "moe_aux_sharded": float(mm["moe_aux"]),
+           "moe_aux_per_shard_estimate": want_aux,
+           "moe_aux_single": float(m["moe_aux"]), "moe_aux_rel_err": aux_err,
+           "grad_norm_single": float(m["grad_norm"]),
+           "grad_norm_sharded": float(mm["grad_norm"]),
+           "single_step_ms": single_ms, "sharded_step_ms": mesh_ms}
+    emit(row)
+    if loss_err > MESH_LOSS_TOL or worst_ratio > 1.0 or aux_err > 1e-5 \
+            or worst_grad > 1.0 or gn_err > gn_tol:
+        fail(f"{where}: {key} err {loss_err}, parameters at "
+             f"{worst_ratio} of the bound, gradients at {worst_grad}, grad "
+             f"norm err {gn_err}, aux err {aux_err}")
+    del params, got, got_m, state, mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_moe_ep_gate(seed, mesh, device, smi):
+    """`moe_ep` against `moe_dense` at deepseek-moe-16b's published width
+    (d 2048, 64 experts top-6, 2 shared), one layer in bf16."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.parallel import param_specs
+    from repro_torch.parallel.sharding import make_ctx
+    cfg = family_config("deepseek-moe-16b")
+    gen = torch.Generator(device=device).manual_seed(seed + 82)
+    p = moe.init_moe(gen, cfg.d_model, cfg.n_experts, cfg.n_shared_experts,
+                     cfg.d_ff_expert, torch.bfloat16, device)
+    x = torch.randn((MESH_EP_B, MESH_EP_S, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    ctx = make_ctx(mesh)
+    sh = param_specs.shard_params({"moe": p}, mesh)["moe"]
+    xs = ctx.constrain(x, "batch", None, None)
+    k = cfg.moe_topk
+    with torch.no_grad():
+        want, aux_d = moe.moe_dense(p, x, topk=k, capacity_factor=64.0)
+        sync_all()
+        t0 = time.perf_counter()
+        got, aux = moe.moe(sh, xs, topk=k, capacity_factor=64.0, ctx=ctx)
+        sync_all()
+        ep_ms = (time.perf_counter() - t0) * 1e3
+        got = got.full(device)
+        est = [float(moe._route(p["router"].to(t.device),
+                                t.reshape(-1, cfg.d_model), k)[2])
+               for t in xs.shards]
+    est = sum(est) / len(est)
+    d = (got.float() - want.float()).abs()
+    ratio = float((d / (2e-2 + 2e-2 * want.float().abs())).max())
+    mean = float(d.mean())
+    aux_err = abs(float(aux) - est) / abs(est)
+    row = {"phase": "lm_mesh", "part": "moe_ep_gate", "nvidia_smi": smi,
+           "mesh": dict(mesh.shape), "d_model": cfg.d_model,
+           "experts": [cfg.n_experts, k, cfg.n_shared_experts],
+           "tokens": MESH_EP_B * MESH_EP_S, "capacity_factor": 64.0,
+           "max_abs_err": float(d.max()), "mean_abs_err": mean,
+           "err_over_bound": ratio, "aux_ep": float(aux),
+           "aux_per_shard_estimate": est, "aux_dense": float(aux_d),
+           "aux_rel_err": aux_err, "ep_ms": ep_ms}
+    emit(row)
+    if ratio > 1.0 or mean >= 5e-3 or aux_err > 1e-5:
+        fail(f"lm_mesh: moe_ep against moe_dense at {ratio} of the bound, "
+             f"mean error {mean}, aux err {aux_err}")
+    del p, sh, x, xs, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_compress_gate(seed, device, smi):
+    """The int8 compressed all-reduce with error feedback over an 8-rank
+    ``data`` axis (one device repeated): 20 steps within 2% of the exact
+    running sum, under 30% of the bytes (the reference's bounds)."""
+    import torch
+    from repro_torch.optim import compress
+    from repro_torch.parallel.sharding import Mesh
+    mesh = Mesh((device,) * 8, axis_names=("data",))
+    gen = torch.Generator(device=device).manual_seed(seed + 83)
+    g = torch.randn((8, 4, 130), generator=gen, device=device)
+    err = compress.init_error_state([{"w": g[r]} for r in range(8)])
+    tot, exact = torch.zeros_like(g[0]), torch.zeros_like(g[0])
+    for i in range(20):
+        gi = g * (1 + 0.01 * i)
+        red, err = compress.compressed_pmean([{"w": gi[r]} for r in range(8)],
+                                             err, mesh, "data")
+        tot += red[0]["w"]
+        exact += gi.mean(0)
+    rel = float((tot - exact).abs().max() / exact.abs().max())
+    exact_b, comp_b = compress.bytes_saved_per_step({"w": g[0]})
+    row = {"phase": "lm_mesh", "part": "compress_gate", "nvidia_smi": smi,
+           "ranks": 8, "steps": 20, "accum_rel_err": rel,
+           "bytes_exact": exact_b, "bytes_compressed": comp_b}
+    emit(row)
+    if rel >= 0.02 or comp_b >= 0.3 * exact_b:
+        fail(f"lm_mesh: compressed all-reduce {rel} off, {comp_b}/{exact_b} "
+             "bytes")
+    return row
+
+
+def _busy_by_card(prof) -> dict:
+    """Device busy ms of a profile, by card."""
+    busy = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        dur = (e.duration_ns() if hasattr(e, "duration_ns")
+               else e.duration_us() * 1000)
+        i = e.device_index()
+        busy[i] = busy.get(i, 0) + dur / 1e6
+    return busy
+
+
+def mesh_train_run(seed, mesh, n_layers, device, smi):
+    """deepseek-moe-16b in bf16 at its published width (``n_layers``, or
+    all), random weights from the seed, on ``mesh`` through the `Trainer`
+    (AdamW, the token stream and its drift monitor checked at every batch,
+    no checkpoint), MESH_RUN_STEPS steps and one profiled.  Gates: finite
+    loss and gradient norm, no kernel launched by a step, the monitor's
+    one `srp_hash` and one `swakde_segment_pass` a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+    cfg = family_config("deepseek-moe-16b", n_layers)
+    steps = MESH_RUN_STEPS + 1
+    where = f"lm_mesh run {cfg.n_layers} layers"
+    cards = _mesh_cards(mesh)
+    reckoned = _reckon_mesh_bytes(cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    rows, prof_box = [], {}
+
+    def run_step(fn):
+        last = len(rows) + 1 == steps
+        before = dict(ops.LAUNCHES)
+        sync_all()
+        with (profile(activities=[ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            m = out[-1]
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            sync_all()
+            wall = time.perf_counter() - t0
+        if last:
+            prof_box["prof"] = prof
+        if dict(ops.LAUNCHES) != before:
+            fail(f"{where}: step {len(rows) + 1} launched a kernel")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"{where}: step {len(rows) + 1} loss {loss} grad norm {gnorm}")
+        rows.append({"step": len(rows) + 1, "ms": wall * 1e3, "loss": loss,
+                     "grad_norm": gnorm, "moe_aux": float(m["moe_aux"]),
+                     "profiled": last})
+        return out
+
+    ckpt_dir = ROOT / "build" / "lm_mesh"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=MESH_RUN_B,
+                               seq=MESH_RUN_S, seed=seed + 84)
+    tcfg = trainer.TrainerConfig(steps=steps, ckpt_every=0,
+                                 ckpt_dir=str(ckpt_dir), optimizer="adamw",
+                                 lr=TRAIN_LR, log_every=10**9)
+    t0 = time.perf_counter()
+    tr = trainer.Trainer(cfg, dcfg, tcfg, mesh=mesh, log_fn=lambda s: None)
+    tr.monitor = monitor = _CheckedMonitor(tr.monitor, mesh.devices[0], where)
+    step_fn = tr._step_fn
+    tr._step_fn = lambda state, batch: run_step(lambda: step_fn(state, batch))
+    state = tr.run(seed=seed + 85)["state"]
+    total_s = time.perf_counter() - t0
+    peaks = {c: torch.cuda.max_memory_allocated(c) for c in cards}
+    busy = _busy_by_card(prof_box["prof"])
+    _, n_ops, top = device_profile(prof_box.pop("prof"))
+    steady = sorted(r["ms"] for r in rows[1:-1]) or [rows[-1]["ms"]]
+    step_ms = steady[len(steady) // 2]
+    tokens = MESH_RUN_B * MESH_RUN_S
+    prof_ms = rows[-1]["ms"]
+    row = {"phase": "lm_mesh", "part": "train_run", "arch": cfg.arch_id,
+           "nvidia_smi": smi, "mesh": dict(mesh.shape), "cards": cards,
+           "layers_run": [cfg.n_layers, family_config(cfg.arch_id).n_layers],
+           "dtype": cfg.param_dtype, "B": MESH_RUN_B, "S": MESH_RUN_S,
+           "rank_rows": MESH_RUN_B // mesh.shape["data"],
+           "optimizer": "adamw", "remat": cfg.remat, "steps": rows,
+           "step_ms_first": rows[0]["ms"], "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "ms_per_layer": step_ms / cfg.n_layers,
+           "reckoned_gb_by_card": {c: b / 1e9 for c, b in reckoned.items()},
+           "peak_gb_by_card": {c: b / 1e9 for c, b in peaks.items()},
+           "profiled_step_ms": prof_ms,
+           "busy_ms_by_card": busy,
+           "busy_share_by_card": {c: v / prof_ms for c, v in busy.items()},
+           "device_ops": n_ops, "top_device_ops": top,
+           "run_s": total_s, "drift_ms": monitor.ms,
+           "launches": monitor.launches,
+           "monitor_code_flips": monitor.flips,
+           "monitor_density_err_rel_max": monitor.density_err}
+    emit(row)
+    if monitor.launches["srp_hash"] != steps or \
+            monitor.launches["swakde_segment_pass"] != steps:
+        fail(f"{where}: the drift monitor ran {monitor.launches}")
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_mesh(seed, device, cards=1):
+    """LM training on a (data, model) mesh: one card repeated as a 2 x 2
+    mesh (``cards`` 1), or cards 0..3 as data 2 x model 2 (``cards`` 4).
+    Returns the drift monitor's launch counts."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    if cards == 1:
+        mesh = make_test_mesh(*MESH_SHAPE, torch.device(
+            "cuda", torch.cuda.current_device()))
+    else:
+        mesh = make_test_mesh(*MESH_SHAPE, "cuda")
+    mesh_step_gate(seed, "qwen3-4b", mesh, device, smi)
+    mesh_step_gate(seed, "deepseek-moe-16b", mesh, device, smi)
+    mesh_moe_ep_gate(seed, mesh, device, smi)
+    if cards == 1:
+        mesh_compress_gate(seed, device, smi)
+    row = mesh_train_run(seed, mesh, MESH_RUN_LAYERS if cards == 1 else None,
+                         device, smi)
+    return {"launches": row["launches"]}
 
 
 # --------------------------------------------------------------------------
@@ -4144,7 +4584,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     * each kind at T = 8 (cross-checked on the CPU), RACE and SW-AKDE also
       at T = 256: one launch of the commit kernel an operation whatever T
       is, every tenant's row its single-sketch loop's;
-    * a profile window of 4 fleet chunks each."""
+    * a profile window of 4 RACE and of 4 SW-AKDE fleet chunks."""
     import dataclasses
     import tempfile
     import numpy as np
@@ -4361,13 +4801,13 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     del oracle, codes
 
     secs_of["sann"] = lap()
-    # --- profile windows of 4 fleet chunks ---------------------------------
+    # --- profile windows of 4 fleet chunks (RACE and SW-AKDE; S-ANN's, ~20
+    # s of its 32 095 device ops, is cut for time) --------------------------
     profile = {}
     n4 = 4 * CHUNK
     for name, f, host, tt in (
             ("race", race_fleet, khost, zipf_tids(n4, FLEET_TENANTS, seed + 11)),
-            ("swakde", sw_fleet, khost, zipf_tids(n4, FLEET_SW_TENANTS, seed + 12)),
-            ("sann", fl, shost, zipf_tids(n4, FLEET_SANN_TENANTS, seed + 13))):
+            ("swakde", sw_fleet, khost, zipf_tids(n4, FLEET_SW_TENANTS, seed + 12))):
         ops.reset_launches()
         row = profile_window(f"{name}_fleet_ingest_4_chunks",
                              lambda f=f, h=host, t=tt: _fleet_feed(
@@ -5600,12 +6040,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cards", type=int, default=1,
-                    help="1 (default): every phase, the sharding phase on "
-                    "one card repeated; N > 1: only the sharding phase (and "
-                    "the phases it reads) on cards 0..N-1")
+                    help="1 (default): every phase, the sharding and lm_mesh "
+                    "phases on one card repeated; N > 1: only the sharding "
+                    "phase (and the phases it reads) on cards 0..N-1, and "
+                    "at N = 4 the lm_mesh phase on cards 0..3")
     ap.add_argument("--only", choices=["train", "lm_families",
-                                       "train_families"],
-                    help="run only this phase (after the device phase)")
+                                       "train_families", "lm_mesh"],
+                    help="run only this phase (after the device phase); "
+                    "lm_mesh with --cards 4 trains on cards 0..3")
     args = ap.parse_args(argv)
 
     import torch
@@ -5643,16 +6085,23 @@ def main(argv=None) -> int:
         timed(phase_train_families, args.seed, device)
         emit(ok_line)
         return 0
+    if args.only == "lm_mesh":
+        timed(phase_lm_mesh, args.seed, device, args.cards)
+        emit(ok_line)
+        return 0
     if args.cards == 1:
         train_run = timed(phase_train, args.seed, device)
         families_run = timed(phase_lm_families, args.seed, device)
         train_families_run = timed(phase_train_families, args.seed, device)
+        mesh_run = timed(phase_lm_mesh, args.seed, device)
     sann_run = timed(phase_sann, args.seed, device)
     kde_run = timed(phase_kde, args.seed, device)
     srp_run = timed(phase_srp_kde, args.seed, kde_run, device)
     if args.cards > 1:
         timed(phase_sharding, args.seed, sann_run, kde_run, srp_run, device,
               tuple(torch.device("cuda", i) for i in range(args.cards)))
+        if args.cards == 4:
+            timed(phase_lm_mesh, args.seed, device, args.cards)
         emit(ok_line)
         return 0
     oracle_launches = timed(phase_sann_oracles, sann_run, device)
@@ -5727,6 +6176,7 @@ def main(argv=None) -> int:
             "families_launches": families_run["launches"].get(row["name"], 0),
             "train_families_launches": train_families_run["launches"].get(
                 row["name"], 0),
+            "lm_mesh_launches": mesh_run["launches"].get(row["name"], 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -15,7 +15,10 @@ nested dicts (``jax.tree.map(np.asarray, params)``): `lm_params_from_numpy`
 builds the port's `models.model.ParamTree`, `lm_cache_from_numpy` and
 `lm_cache_to_numpy` carry a cache both ways.  A training state (the
 reference's ``TrainState`` with any of its optimizers' states, as numpy)
-crosses with `train_state_from_numpy` and `train_state_to_numpy`.
+crosses with `train_state_from_numpy` and `train_state_to_numpy`; with a
+``mesh`` the first places the tree on it (through
+`parallel.param_specs.shard_params`) and the second gathers a sharded tree
+(`parallel.param_specs.gather_params`, assembled on the host).
 """
 from __future__ import annotations
 
@@ -151,20 +154,28 @@ def _fields_of(obj) -> dict:
     return dict(obj._asdict()) if hasattr(obj, "_asdict") else dict(obj)
 
 
-def train_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> dict:
+def train_params_from_numpy(tree: Mapping[str, Any], device="cuda",
+                            mesh=None) -> dict:
     """A reference parameter pytree as numpy → nested dicts of tensors on
     ``device`` (the training layout; `lm_params_from_numpy` builds the
-    decode's `ParamTree`)."""
+    decode's `ParamTree`), or with a ``mesh`` placed on it per
+    `param_specs.param_shardings` (from the host)."""
+    if mesh is not None:
+        from .parallel import param_specs
+        return param_specs.shard_params(_tree(tree, torch.device("cpu")), mesh)
     return _tree(tree, resolve_device(device))
 
 
-def train_state_from_numpy(state, device="cuda"):
+def train_state_from_numpy(state, device="cuda", mesh=None):
     """A reference ``TrainState`` whose leaves are numpy (``params``,
     ``opt_state`` of AdamW, Adam8bit or Adafactor, ``step``) → the port's
-    `train.train_step.TrainState` on ``device``.  The optimizer state's
-    class follows its field names."""
+    `train.train_step.TrainState` on ``device``, or with a ``mesh`` placed
+    on it by the reference's parameter and optimizer-state specs (from the
+    host).  The optimizer state's class follows its field names."""
     from .optim import adam
-    from .train.train_step import TrainState
+    from .train.train_step import TrainState, shard_state
+    if mesh is not None:
+        return shard_state(train_state_from_numpy(state, "cpu"), mesh)
     device = resolve_device(device)
     d = _fields_of(state)
     opt = _fields_of(d["opt_state"])
@@ -178,9 +189,13 @@ def train_state_from_numpy(state, device="cuda"):
 
 
 def train_state_to_numpy(state) -> dict:
-    """A port ``TrainState`` → nested dicts of numpy arrays (bfloat16
-    leaves as float32, which holds them exactly)."""
+    """A port ``TrainState`` (on a mesh too) → nested dicts of numpy arrays
+    (bfloat16 leaves as float32, which holds them exactly)."""
+    from .parallel.sharding import Sharded
+
     def host(x):
+        if isinstance(x, Sharded):
+            x = x.full("cpu")
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu()
             return (x.float() if x.dtype == torch.bfloat16 else x).numpy()

@@ -1,2 +1,3 @@
-"""Model inputs for a train or prefill step (the dry-run is not ported)."""
-from . import inputs  # noqa: F401
+"""Model inputs for a train or prefill step and the test mesh (the dry-run
+and the production meshes are not ported)."""
+from . import inputs, mesh  # noqa: F401

@@ -8,6 +8,17 @@ leaf for leaf.  Each mirrors the reference's float32 arithmetic as XLA
 compiles it: a mean is sum × fp32 reciprocal, a division by a constant is a
 multiply by its fp32 reciprocal, and the RoPE frequencies are the correctly
 rounded ``theta ** e`` that XLA's ``pow`` gives (``torch.pow`` is an ulp off).
+
+On a ``(data, model)`` mesh (`attention_ranks`, `mlp_ranks`) the layers take
+one activation a rank (its data shard, equal over ``model``) and a layer's
+tree of `parallel.sharding.Sharded` weights, and give one output a rank,
+again equal over ``model``.  Attention's ``wq`` / ``wk`` / ``wv`` are
+column-parallel and ``wo`` row-parallel, likewise the MLP's ``w_up`` /
+``w_gate`` and ``w_down``: each rank gathers its ``model`` block of the
+weights over the FSDP axis, computes its heads or FFN columns, and one sum
+over ``model`` follows the row-parallel product.  Where a weight's split
+does not fall on whole heads or on the matching FFN columns, the layer
+gathers the weights whole and computes as on one device, on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.util import fp32_reciprocal, mean_last
+from ..parallel import sharding
 from .flash import flash_attention
 
 
@@ -175,3 +187,117 @@ def unembed(params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits * fp32_reciprocal(softcap))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on a (data, model) mesh: one activation a rank
+# ---------------------------------------------------------------------------
+
+def rank_leaves(leaf, n: int, keep=()) -> list:
+    """One tensor a rank: a `Sharded` leaf's blocks gathered
+    (`Sharded.gathered`), or on one device (``n`` = 1) the tensor itself."""
+    if isinstance(leaf, sharding.Sharded):
+        return leaf.gathered(keep)
+    return [leaf] * n
+
+
+def gathered_tree(tree) -> list:
+    """One dict a rank of a tree's `Sharded` leaves gathered whole."""
+    keys = list(tree)
+    cols = {k: (gathered_tree(tree[k]) if isinstance(tree[k], dict)
+                else tree[k].gathered()) for k in keys}
+    n = len(next(iter(cols.values())))
+    return [{k: cols[k][r] for k in keys} for r in range(n)]
+
+
+def _model_split(leaf, dim: int) -> bool:
+    """Whether ``leaf`` splits ``dim`` over ``model`` alone."""
+    return leaf.spec[dim % len(leaf.spec)] == "model"
+
+
+def attention_ranks(params, hs: list, positions: list, mesh, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    rope_theta: float, qk_norm: bool = False,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, norm_eps: float = 1e-6) -> list:
+    """`attention` of one activation a rank: the heads split over
+    ``model`` where ``wq`` and ``wo`` split on whole heads, the local
+    query heads' keys and values from ``wk`` / ``wv``'s own blocks when
+    those fall on whole heads, else from their gathered columns of the
+    heads needed; otherwise every weight gathered and every head computed
+    on every rank.  With no ``mesh``, `attention` of ``hs``' one
+    activation on one device."""
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    H, Hkv, dh = n_heads, n_kv_heads, head_dim
+    g = H // Hkv
+    tp = (M > 1 and H % M == 0 and _model_split(params["wq"], -1)
+          and _model_split(params["wo"], -2))
+    Hl = H // M
+    kv_local = tp and Hkv % M == 0 and all(
+        _model_split(params[k], -1) for k in ("wk", "wv"))
+    if tp and not kv_local and not (Hl % g == 0 or g % Hl == 0):
+        tp = False
+    kw = dict(head_dim=dh, rope_theta=rope_theta, qk_norm=qk_norm,
+              causal=causal, window=window, softcap=softcap,
+              norm_eps=norm_eps)
+    norms = {k: rank_leaves(params[k], len(hs)) for k in ("q_norm", "k_norm")
+             if k in params}
+    if not tp:
+        full = {k: rank_leaves(params[k], len(hs))
+                for k in ("wq", "wk", "wv", "wo")}
+        outs = []
+        for r, h in enumerate(hs):
+            p = {k: v[r] for k, v in {**full, **norms}.items()}
+            outs.append(attention(p, h, positions[r], n_heads=H,
+                                  n_kv_heads=Hkv, **kw)[0])
+        return outs
+    local = {k: params[k].gathered(keep=("model",)) for k in ("wq", "wo")}
+    kv = {k: params[k].gathered(keep=("model",) if kv_local else ())
+          for k in ("wk", "wv")}
+    parts = []
+    for r, h in enumerate(hs):
+        p = {k: v[r] for k, v in {**local, **norms}.items()}
+        if kv_local:
+            n_kv = Hkv // M
+            p["wk"], p["wv"] = kv["wk"][r], kv["wv"][r]
+        else:      # the kv heads this rank's query heads read
+            m = sharding.axis_index(mesh, r, "model")
+            lo, hi = (m * Hl) // g, ((m + 1) * Hl - 1) // g + 1
+            n_kv = hi - lo
+            p["wk"] = kv["wk"][r][:, lo * dh:hi * dh]
+            p["wv"] = kv["wv"][r][:, lo * dh:hi * dh]
+        parts.append(attention(p, h, positions[r], n_heads=Hl,
+                               n_kv_heads=n_kv, **kw)[0])
+    return sharding.psum(parts, mesh, "model")
+
+
+def mlp_ranks(params, hs: list, mesh, act=F.silu) -> list:
+    """`mlp` of one activation a rank: column-parallel ``w_up`` /
+    ``w_gate`` and row-parallel ``w_down`` with one sum over ``model``
+    where all three split their FFN dim over it, else the weights
+    gathered whole on every rank (with no ``mesh``: `mlp` on one
+    device)."""
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    names = [k for k in ("w_up", "w_gate") if k in params]
+    tp = M > 1 and all(_model_split(params[k], -1) for k in names) \
+        and _model_split(params["w_down"], -2)
+    w = {k: rank_leaves(params[k], len(hs), keep=("model",) if tp else ())
+         for k in names + ["w_down"]}
+    outs = [mlp({k: v[r] for k, v in w.items()}, h, act=act)
+            for r, h in enumerate(hs)]
+    return sharding.psum(outs, mesh, "model") if tp else outs
+
+
+def embed_ranks(params, tokens: list) -> list:
+    """`embed` of one token block a rank, the vocab-split table gathered
+    whole on each rank (the reference's choice: gathering the table beats
+    summing activations over the vocab)."""
+    table = params["embed"].gathered()
+    return [F.embedding(t, table[r]) for r, t in enumerate(tokens)]
+
+
+def unembed_weights(params) -> list:
+    """One dict a rank holding the whole unembedding (``unembed``, or the
+    tied ``embed``), gathered."""
+    key = "unembed" if "unembed" in params else "embed"
+    return [{key: w} for w in params[key].gathered()]

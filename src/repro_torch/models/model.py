@@ -20,11 +20,21 @@ either.  A stacked tree (``blocks``, ``dense_blocks``, ``moe_blocks``,
 passes per-layer leaves that take gradients; ``mamba_blocks`` a list of
 groups, each a list of layers).  Where the reference scans over a stack,
 `forward` loops over its layers; with ``cfg.remat`` and gradients on, each
-loop body is rematerialised in the backward (``torch.utils.checkpoint``)
-where the reference's ``_scan_stack`` puts ``jax.checkpoint``: a layer of
+loop body is rematerialised in the backward (`remat.remat_call`) where the reference's ``_scan_stack`` puts ``jax.checkpoint``: a layer of
 the dense, moe and encoder-decoder stacks, a group (its Mamba2 layers and
 the shared block) of the hybrid, an (mLSTM, sLSTM + FFN) pair of the
 xLSTM.
+
+On a ``(data, model)`` mesh (``ctx`` with a mesh; `forward_ranks`) the
+parameters are a tree of `parallel.sharding.Sharded` leaves placed by
+`parallel.param_specs`, and the batch splits its rows over the data axes.
+Each rank runs its data shard; attention and the MLPs are tensor-parallel
+over ``model`` (`layers.attention_ranks`, `layers.mlp_ranks`), the MoE
+layers expert-parallel (`moe.moe_ranks`), and each layer gathers its FSDP
+weights inside the layer (rematerialised with it).  The residual stream
+stays replicated over ``model``: the reference's ``seq_sp`` constraint
+splits it over the sequence there, a layout only.  The dense and moe (GQA)
+families run on a mesh; the others raise.
 """
 from __future__ import annotations
 
@@ -36,11 +46,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.util import fp32_reciprocal, resolve_device
+from ..parallel.sharding import NULL_CTX, Sharded, ShardingCtx
 from . import layers, mla, moe, ssm, xlstm
+from .remat import remat_call
 
 VIT_DIM = 1024  # the stub InternViT's output width
 
@@ -222,59 +233,103 @@ def layer_params(blocks, i: int):
             for k, v in blocks.items()}
 
 
-def _dense_block(p, x, positions, window: int, cfg: ModelConfig):
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = layers.attention(
-        p["attn"], h, positions,
+def _dense_block(p, xs: list, positions: list, window: int,
+                 cfg: ModelConfig, mesh=None) -> list:
+    """A dense block over a list of activations: one on one device, or one
+    a rank of ``mesh`` (its data shard), the weights then `Sharded` and
+    attention and the MLP tensor-parallel over ``model``."""
+    ln = {k: layers.rank_leaves(p[k], len(xs))
+          for k in ("ln1", "ln2", "ln1_post", "ln2_post") if k in p}
+    hs = [layers.rms_norm(x, ln["ln1"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    a = layers.attention_ranks(
+        p["attn"], hs, positions, mesh,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm, causal=True, window=window,
         softcap=cfg.attn_softcap, norm_eps=cfg.norm_eps)
-    if "ln1_post" in p:
-        a = layers.rms_norm(a, p["ln1_post"], cfg.norm_eps)
-    x = x + a
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = layers.mlp(p["mlp"], h,
-                   act=layers.gelu_tanh if cfg.mlp_act == "gelu" else F.silu)
-    if "ln2_post" in p:
-        m = layers.rms_norm(m, p["ln2_post"], cfg.norm_eps)
-    return x + m
+    if "ln1_post" in ln:
+        a = [layers.rms_norm(t, ln["ln1_post"][r], cfg.norm_eps)
+             for r, t in enumerate(a)]
+    xs = [x + t for x, t in zip(xs, a)]
+    hs = [layers.rms_norm(x, ln["ln2"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    m = layers.mlp_ranks(p["mlp"], hs, mesh,
+                         act=layers.gelu_tanh if cfg.mlp_act == "gelu"
+                         else F.silu)
+    if "ln2_post" in ln:
+        m = [layers.rms_norm(t, ln["ln2_post"][r], cfg.norm_eps)
+             for r, t in enumerate(m)]
+    return [x + t for x, t in zip(xs, m)]
 
 
-def _run_stack(body, stack, n: int, x, remat: bool):
-    """``x = body(layer_params(stack, i), x)`` for i < n, each call
-    rematerialised in the backward when ``remat``; a body may also return
-    ``(x, aux)``, and the auxes are summed in layer order (from 0.0)."""
-    aux = None
-    for i in range(n):
-        f = functools.partial(body, layer_params(stack, i))
-        out = checkpoint(f, x, use_reentrant=False) if remat else f(x)
-        if isinstance(out, tuple):
-            x, a = out
-            aux = a if aux is None else aux + a
-        else:
-            x = out
-    return x, aux
-
-
-def _moe_block(p, x, positions, cfg: ModelConfig):
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+def _moe_block(p, xs: list, positions: list, cfg: ModelConfig, mesh=None):
+    """A MoE block over a list of activations (as `_dense_block`; MLA
+    attention on one device only) → (activations, aux loss)."""
+    ln = {k: layers.rank_leaves(p[k], len(xs)) for k in ("ln1", "ln2")}
+    hs = [layers.rms_norm(x, ln["ln1"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
     if cfg.use_mla:
-        a, _ = mla.mla_attention(
-            p["attn"], h, positions, n_heads=cfg.n_heads,
+        (h,), (pos,) = hs, positions
+        a = [mla.mla_attention(
+            p["attn"], h, pos, n_heads=cfg.n_heads,
             head_dim=cfg.resolved_head_dim, rope_dim=cfg.mla_rope_dim,
-            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)[0]]
     else:
-        a, _ = layers.attention(
-            p["attn"], h, positions, n_heads=cfg.n_heads,
+        a = layers.attention_ranks(
+            p["attn"], hs, positions, mesh, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, causal=True,
             norm_eps=cfg.norm_eps)
-    x = x + a
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    m, a_loss = moe.moe(p["moe"], h, topk=cfg.moe_topk,
-                        capacity_factor=cfg.capacity_factor)
-    return x + m, a_loss
+    xs = [x + t for x, t in zip(xs, a)]
+    hs = [layers.rms_norm(x, ln["ln2"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    m, aux = moe.moe_ranks(p["moe"], hs, mesh, topk=cfg.moe_topk,
+                           capacity_factor=cfg.capacity_factor)
+    return [x + t for x, t in zip(xs, m)], aux
+
+
+def _run_stack(body, stack, n: int, xs: list, remat: bool):
+    """``xs = body(layer_params(stack, i), xs)`` for i < n over a list of
+    activations (one on one device, one a rank on a mesh), each layer (its
+    gathers and collectives included) rematerialised in the backward when
+    ``remat`` (`remat.remat_call`); a body may also return ``(xs, aux)``, the auxes
+    summed in layer order."""
+    aux = None
+    for i in range(n):
+        f = functools.partial(lambda p, *xs: body(p, list(xs)),
+                              layer_params(stack, i))
+        out = remat_call(f, *xs) if remat else f(*xs)
+        if isinstance(out, tuple):
+            xs, a = out
+            aux = a if aux is None else aux + a
+        else:
+            xs = out
+    return xs, aux
+
+
+def _lm_stack(tree, cfg: ModelConfig, xs: list, positions: list,
+              remat: bool, mesh=None):
+    """The dense (vlm) or moe stack over a list of activations (one on one
+    device, one a rank of ``mesh``) → (activations, the scaled MoE aux or
+    None)."""
+    if cfg.family in ("dense", "vlm"):
+        stack = [(layer_params(tree["blocks"], i), window)
+                 for i, window in enumerate(window_pattern(cfg))]
+        xs, _ = _run_stack(lambda pw, xs: _dense_block(
+            pw[0], xs, positions, pw[1], cfg, mesh), stack, cfg.n_layers, xs,
+            remat)
+        return xs, None
+    nd, nm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
+    if nd:
+        xs, _ = _run_stack(lambda p, xs: _dense_block(p, xs, positions, 0,
+                                                      cfg, mesh),
+                           tree["dense_blocks"], nd, xs, remat)
+    xs, aux = _run_stack(lambda p, xs: _moe_block(p, xs, positions, cfg, mesh),
+                         tree["moe_blocks"], nm, xs, remat)
+    if aux is not None:
+        aux = aux * cfg.moe_aux_coef * fp32_reciprocal(max(nm, 1))
+    return xs, aux
 
 
 def _hybrid_group(shared, group, x, positions, cfg: ModelConfig):
@@ -288,7 +343,7 @@ def _hybrid_group(shared, group, x, positions, cfg: ModelConfig):
                           head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
                           norm_eps=cfg.norm_eps)
         x = x + o
-    return _dense_block(shared, x, positions, 0, cfg)
+    return _dense_block(shared, [x], [positions], 0, cfg)[0]
 
 
 def _xlstm_pair(ps, x, cfg: ModelConfig):
@@ -306,15 +361,20 @@ def _xlstm_pair(ps, x, cfg: ModelConfig):
     return x + layers.mlp(psl["ffn"], h)
 
 
-def forward(params, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
+def forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx = NULL_CTX,
+            return_hidden: bool = False):
     """``batch["tokens"] (B, S)`` (and ``"patches" (B, n_patches, 1024)``
     for vlm, ``"frames" (B, enc_frames, d_model)`` for encdec, the stub
     frontends' outputs) → ``(logits (B, S, vocab) fp32, aux)``; aux holds
     ``moe_aux`` and, for a model with an MTP head, ``mtp_logits``.
     ``return_hidden=True`` skips the unembedding and yields the final normed
     hidden states (and ``mtp_hidden``): the train loss unembeds them chunk
-    by chunk."""
+    by chunk.  On a mesh (``ctx.mesh``) see `forward_ranks`: the outputs
+    are `Sharded` (the logits split over the batch axes and the vocab), and
+    ``moe_aux`` lies on the mesh's first device."""
     tree = params.to_dict() if isinstance(params, ParamTree) else params
+    if ctx.mesh is not None:
+        return _forward_mesh(tree, cfg, batch, ctx, return_hidden)
     if cfg.family == "encdec":
         return _forward_encdec(tree, cfg, batch, return_hidden)
     tokens = batch["tokens"]
@@ -334,33 +394,20 @@ def forward(params, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    if cfg.family in ("dense", "vlm"):
-        stack = [(layer_params(tree["blocks"], i), window)
-                 for i, window in enumerate(window_pattern(cfg))]
-        x, _ = _run_stack(lambda pw, x: _dense_block(pw[0], x, positions,
-                                                     pw[1], cfg),
-                          stack, cfg.n_layers, x, remat)
-    elif cfg.family == "moe":
-        nd, nm = cfg.n_dense_layers, cfg.n_layers - cfg.n_dense_layers
-        if nd:
-            x, _ = _run_stack(functools.partial(
-                _dense_block, positions=positions, window=0, cfg=cfg),
-                tree["dense_blocks"], nd, x, remat)
-        x, moe_aux = _run_stack(functools.partial(
-            _moe_block, positions=positions, cfg=cfg),
-            tree["moe_blocks"], nm, x, remat)
+    if cfg.family in ("dense", "vlm", "moe"):
+        (x,), moe_aux = _lm_stack(tree, cfg, [x], [positions], remat)
         if moe_aux is not None:
-            aux = moe_aux * cfg.moe_aux_coef * fp32_reciprocal(max(nm, 1))
+            aux = moe_aux
     elif cfg.family == "hybrid":
-        x, _ = _run_stack(functools.partial(
-            _hybrid_group, tree["shared_attn"], positions=positions, cfg=cfg),
-            tree["mamba_blocks"], cfg.n_layers // cfg.attn_every, x, remat)
+        (x,), _ = _run_stack(lambda g, xs: [_hybrid_group(
+            tree["shared_attn"], g, xs[0], positions, cfg)],
+            tree["mamba_blocks"], cfg.n_layers // cfg.attn_every, [x], remat)
     elif cfg.family == "ssm":
         n = cfg.n_layers // 2
         pairs = [(layer_params(tree["mlstm_blocks"], i),
                   layer_params(tree["slstm_blocks"], i)) for i in range(n)]
-        x, _ = _run_stack(functools.partial(_xlstm_pair, cfg=cfg), pairs, n,
-                          x, remat)
+        (x,), _ = _run_stack(lambda ps, xs: [_xlstm_pair(ps, xs[0], cfg)],
+                             pairs, n, [x], remat)
     else:
         raise ValueError(cfg.family)
 
@@ -382,6 +429,61 @@ def forward(params, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
     return logits, out_aux
 
 
+MESH_ITEM = "ROADMAP.md, queue 1, item 8"
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise for a family that does not run on a mesh yet: only the dense
+    and the moe (GQA) families do."""
+    if cfg.family == "dense" or (cfg.family == "moe" and not cfg.use_mla
+                                 and not cfg.mtp_depth):
+        return
+    what = ("moe with MLA" if cfg.use_mla else "moe with an MTP head") \
+        if cfg.family == "moe" else cfg.family
+    raise ValueError(f"{cfg.arch_id}: the {what} family does not run on a "
+                     f"mesh yet ({MESH_ITEM}: the other families on a mesh)")
+
+
+def forward_ranks(tree, cfg: ModelConfig, tokens: list, mesh):
+    """The mesh forward on one token block a rank (rank r's rows of the
+    batch) → (one final normed hidden state a rank, the MoE aux on the
+    mesh's first device, or None)."""
+    check_mesh_family(cfg)
+    xs = layers.embed_ranks(tree["embedding"], tokens)
+    if cfg.scale_embeddings:
+        # the reference rounds sqrt(d_model) to the activation dtype first
+        xs = [x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+              for x in xs]
+    positions = [torch.arange(t.shape[1], dtype=torch.int32,
+                              device=t.device).expand(t.shape)
+                 for t in tokens]
+    xs, aux = _lm_stack(tree, cfg, xs, positions,
+                        cfg.remat and torch.is_grad_enabled(), mesh)
+    ln_f = tree["ln_f"].gathered()
+    xs = [layers.rms_norm(x, ln_f[r], cfg.norm_eps) for r, x in enumerate(xs)]
+    return xs, aux
+
+
+def _forward_mesh(tree, cfg: ModelConfig, batch: dict, ctx: ShardingCtx,
+                  return_hidden: bool):
+    mesh = ctx.mesh
+    tokens = batch["tokens"]
+    if not isinstance(tokens, Sharded):
+        tokens = ctx.constrain(tokens, "batch", None)
+    xs, aux = forward_ranks(tree, cfg, tokens.shards, mesh)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
+    B, S = tokens.shape
+    spec = ctx.spec("batch", None, None)
+    if return_hidden:
+        return Sharded(xs, spec, mesh, (B, S, cfg.d_model)), {"moe_aux": aux}
+    w = layers.unembed_weights(tree["embedding"])
+    logits = [layers.unembed(w[r], x, cfg.final_softcap)
+              for r, x in enumerate(xs)]
+    logits = Sharded(logits, spec, mesh, (B, S, cfg.vocab))
+    return ctx.constrain(logits, "batch", None, "vocab"), {"moe_aux": aux}
+
+
 def _mtp_head(tree, cfg: ModelConfig, h_final, tokens, positions):
     """Depth-1 multi-token prediction (deepseek-v3): h_t joined with the
     embedding of token t+1, projected, through one dense block → hidden
@@ -391,7 +493,7 @@ def _mtp_head(tree, cfg: ModelConfig, h_final, tokens, positions):
     h = torch.cat([layers.rms_norm(h_final, p["ln"], cfg.norm_eps),
                    emb_next.to(h_final.dtype)], dim=-1)
     h = h @ p["proj"]
-    return _dense_block(p["block"], h, positions, 0, cfg)
+    return _dense_block(p["block"], [h], [positions], 0, cfg)[0]
 
 
 def _enc_block(p, x, positions, cfg: ModelConfig):
@@ -438,13 +540,14 @@ def _forward_encdec(tree, cfg: ModelConfig, batch: dict, return_hidden: bool):
     dec_pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     x = frames.to(dt) + _sinusoid(Te, cfg.d_model, dt, device)
-    enc, _ = _run_stack(functools.partial(_enc_block, positions=enc_pos, cfg=cfg),
-                        tree["enc_blocks"], cfg.n_enc_layers, x, remat)
+    (enc,), _ = _run_stack(lambda p, xs: [_enc_block(p, xs[0], enc_pos, cfg)],
+                           tree["enc_blocks"], cfg.n_enc_layers, [x], remat)
     enc = layers.rms_norm(enc, tree["enc_ln_f"], cfg.norm_eps)
     y = layers.embed(tree["embedding"], tokens)
     y = y + _sinusoid(S, cfg.d_model, y.dtype, device)
-    y, _ = _run_stack(lambda p, y: _dec_block(p, y, enc, dec_pos, cfg),
-                      tree["dec_blocks"], cfg.n_layers, y, remat)
+    (y,), _ = _run_stack(lambda p, ys: [_dec_block(p, ys[0], enc, dec_pos,
+                                                   cfg)],
+                         tree["dec_blocks"], cfg.n_layers, [y], remat)
     y = layers.rms_norm(y, tree["ln_f"], cfg.norm_eps)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=device)}
     if return_hidden:

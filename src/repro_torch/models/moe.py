@@ -14,8 +14,14 @@ C rows as one batched product over the stacked ``(E, d, f)`` weights, and
 the dump row reads 0.  The gathered-pair route computes only the kept
 pairs, each on its expert's weights gathered (three ``d x d_ff_expert``
 slices a pair); it reads fewer bytes where ``T * topk < n_experts`` (the
-decode), the buffer route everywhere else (training).  ``moe_ep`` (expert
-parallelism under a mesh) is not ported: ``moe`` refuses a mesh.
+decode), the buffer route everywhere else (training).
+
+``moe_ep`` is expert parallelism on a ``(data, model)`` mesh: the experts
+split over ``model``; each rank routes its data shard's tokens, gathers its
+local experts' weights over the FSDP axis inside the layer, runs the
+capacity dispatch for its experts only (C from its local token count), and
+one bf16 sum over ``model`` combines the ranks' outputs, as the
+reference's ``shard_map`` body does.
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.util import fp32_reciprocal
+from ..parallel import sharding
+from ..parallel.param_specs import batch_axes
+from ..parallel.sharding import NULL_CTX, ShardingCtx
 from . import layers
 
 
@@ -167,12 +176,91 @@ def moe_dense(params, x, *, topk: int, capacity_factor: float):
     return y, aux
 
 
-def moe(params, x, *, topk: int, capacity_factor: float, mesh=None):
-    """The MoE entry point.  The reference runs expert parallelism
-    (``moe_ep``) when its mesh has a model axis; the port has no such path
-    yet and refuses a mesh."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe: expert parallelism over a mesh (the reference's moe_ep) is "
-            "not ported yet (ROADMAP.md, queue 1, item 8)")
-    return moe_dense(params, x, topk=topk, capacity_factor=capacity_factor)
+def moe_ep(params, xs: list, mesh, topk: int, capacity_factor: float):
+    """Expert parallelism, one tensor a rank: ``xs[r]`` rank r's data shard's
+    tokens (equal over ``model``) → (one output a rank, the aux on the
+    mesh's first device).  The expert weights split their experts over
+    ``model``; whatever FSDP axes their specs name (``data``, or ``data``
+    and ``pod`` with the reference's ``fsdp_over_pod``) are gathered."""
+    E = params["router"].shape[-1]
+    M = mesh.shape["model"]
+    if E % M:
+        raise ValueError(f"moe_ep: {E} experts over a {M}-wide model axis")
+    E_local = E // M
+    for k in ("w_gate", "w_up", "w_down"):
+        if params[k].spec[0] != "model":
+            raise ValueError(f"moe_ep: {k} of spec {params[k].spec} does not "
+                             "split its experts over 'model'")
+    routers = params["router"].gathered()
+    # this layer's local experts, gathered over the FSDP axis (ZeRO)
+    wg, wu, wd = (params[k].gathered(keep=("model",))
+                  for k in ("w_gate", "w_up", "w_down"))
+    ys, auxes = [], []
+    for r, x in enumerate(xs):
+        Bl, Sl, d = x.shape
+        x_flat = x.reshape(Bl * Sl, d)
+        w, idx, aux = _route(routers[r], x_flat, topk)
+        C = max(1, math.ceil(Bl * Sl * topk / E * capacity_factor))
+        m = sharding.axis_index(mesh, r, "model")
+        p_local = {"w_gate": wg[r], "w_up": wu[r], "w_down": wd[r]}
+        ys.append(_dispatch_compute_combine(p_local, x_flat, w, idx,
+                                            m * E_local, E_local, C)
+                  .to(torch.bfloat16))
+        auxes.append(aux)
+    # the bf16 combine sum over "model" (per-token sums have <= topk + 1
+    # terms); the per-shard load-balance estimate averaged over the mesh
+    ys = sharding.psum(ys, mesh, "model")
+    aux = sharding.pmean(auxes, mesh, ("model",) + batch_axes(mesh))[0]
+    ys = [y.float().reshape(x.shape).to(x.dtype) for y, x in zip(ys, xs)]
+    if "shared" in params:
+        shared = layers.mlp_ranks(params["shared"], xs, mesh)
+        ys = [y + s for y, s in zip(ys, shared)]
+    return ys, aux
+
+
+def _dense_ranks(params, xs: list, mesh, topk: int, capacity_factor: float):
+    """`moe_dense` over the whole batch on every rank (a mesh whose
+    ``model`` axis does not split the experts): each rank gathers the
+    batch and every weight, and keeps its own rows."""
+    dp = batch_axes(mesh)
+    full = sharding.all_gather(xs, mesh, dp, dim=0)
+    tree = layers.gathered_tree(params)
+    ys, auxes = [], []
+    for r, x in enumerate(xs):
+        y, aux = moe_dense(tree[r], full[r], topk=topk,
+                           capacity_factor=capacity_factor)
+        i = sharding.axis_index(mesh, r, dp)
+        ys.append(y[i * x.shape[0]:(i + 1) * x.shape[0]])
+        auxes.append(aux)
+    return ys, auxes[0]
+
+
+def moe_ranks(params, xs: list, mesh, *, topk: int, capacity_factor: float):
+    """`moe` on one tensor a rank (the mesh forward's activations); with no
+    ``mesh``, `moe_dense` of ``xs``' one tensor on one device."""
+    if mesh is None:
+        y, aux = moe_dense(params, xs[0], topk=topk,
+                           capacity_factor=capacity_factor)
+        return [y], aux
+    if _use_ep(params, mesh):
+        return moe_ep(params, xs, mesh, topk, capacity_factor)
+    return _dense_ranks(params, xs, mesh, topk, capacity_factor)
+
+
+def _use_ep(params, mesh) -> bool:
+    return ("model" in mesh.axis_names and mesh.shape["model"] > 1
+            and params["router"].shape[-1] % mesh.shape["model"] == 0)
+
+
+def moe(params, x, *, topk: int, capacity_factor: float,
+        ctx: ShardingCtx = NULL_CTX):
+    """Dispatching entry point: expert parallelism (`moe_ep`) when the mesh
+    has a ``model`` axis wider than 1 that divides the experts, else
+    `moe_dense` (on a mesh: over the whole batch, as the reference's
+    auto-sharded dense path computes it).  On a mesh ``params`` is a tree
+    of `Sharded` leaves and ``x`` a `Sharded` split over the batch axes."""
+    if ctx.mesh is None:
+        return moe_dense(params, x, topk=topk, capacity_factor=capacity_factor)
+    ys, aux = moe_ranks(params, x.shards, ctx.mesh, topk=topk,
+                        capacity_factor=capacity_factor)
+    return sharding.sharded_like(x, ys), aux

@@ -23,9 +23,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from . import layers
+from .remat import remat_call
 
 
 def init_mamba2(gen, d_model: int, state: int, conv: int, expand: int,
@@ -116,7 +116,7 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
     cum = torch.cumsum(dtc * A, dim=2)                  # log decay, <= 0
     xd = xc * dtc[..., None]                            # fold dt once
     if torch.is_grad_enabled():
-        y_intra = checkpoint(_intra, cum, Cc, Bc, xd, use_reentrant=False)
+        y_intra = remat_call(_intra, cum, Cc, Bc, xd)
     else:
         y_intra = _intra(cum, Cc, Bc, xd)
     last = cum[:, :, -1, :]                             # (B, nc, H)

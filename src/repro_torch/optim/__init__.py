@@ -1,2 +1,2 @@
 """Optimizers for the language model's training step."""
-from . import adam  # noqa: F401
+from . import adam, compress  # noqa: F401

@@ -21,6 +21,16 @@ reciprocal; a mean is sum × reciprocal.  The schedule's scalars are 0-d
 tensors on the parameters' device, so an update never waits on the card.
 Adam8bit's int8 codes then equal the reference's bit for bit (rounding is
 half to even in both packages).
+
+On a mesh the trees' leaves are `parallel.sharding.Sharded` and each rank
+updates its own blocks (`_leaf_sets`): AdamW is elementwise; Adam8bit
+quantises 64-element blocks along the last axis, so a leaf whose last axis
+splits into blocks of a width that is not a multiple of 64 is updated
+whole (gathered on the mesh's first device, the result written back to
+every rank's block), which keeps the reference's codes; Adafactor's
+factored statistics and update norm span the whole leaf, so it updates
+every split leaf whole.  `init_on_mesh` makes an optimizer's (all-zero)
+initial state on the mesh, placed by `param_specs.opt_state_shardings`.
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..checkpoint.checkpoint import tree_leaves, tree_unflatten
+from ..checkpoint.checkpoint import tree_leaves, tree_map, tree_unflatten
 from ..core.util import fp32_reciprocal, mean_last
+from ..parallel import param_specs
+from ..parallel.sharding import Sharded, zeros_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +81,60 @@ def _pieces(*leaves):
 
 def _map(fn: Callable, tree):
     return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
+
+
+def _leaf_sets(grads, *trees, whole=None):
+    """For each leaf of ``grads`` and the matching leaves of ``trees`` (the
+    optimizer state's, then the parameters'), the tensors one update runs
+    on: the leaves themselves; for `Sharded` leaves each rank's blocks in
+    turn, or where ``whole(leaves)`` holds the leaves' global tensors on
+    the mesh's first device, whose updated values are then written back to
+    every rank's blocks of ``trees``."""
+    for leaves in zip(*(tree_leaves(t) for t in (grads,) + trees)):
+        if not isinstance(leaves[-1], Sharded):
+            yield leaves
+        elif whole is not None and whole(leaves):
+            full = [x.full() for x in leaves]
+            yield tuple(full)
+            for x, f in zip(leaves[1:], full[1:]):
+                x.read_from(f)
+        else:
+            for r in range(len(leaves[-1].shards)):
+                yield tuple(x.shards[r] for x in leaves)
+
+
+class _OnDevice:
+    """The step's scalars (0-d tensors) copied once to each device that
+    asks for them."""
+
+    def __init__(self, *scalars):
+        self._by = {scalars[0].device: scalars}
+
+    def on(self, device):
+        if device not in self._by:
+            self._by[device] = tuple(s.to(device) for s in
+                                     next(iter(self._by.values())))
+        return self._by[device]
+
+
+def init_on_mesh(optimizer: "Optimizer", params):
+    """``optimizer.init`` of a tree of `Sharded` parameters: the state's
+    structure, shapes and dtypes from the optimizer's init over meta
+    tensors of the global shapes, each leaf zeros placed by
+    `param_specs.opt_state_shardings` (every optimizer here starts from
+    zeros), the 0-d step on the mesh's first device."""
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    like = optimizer.init(meta)
+    mesh = tree_leaves(params)[0].mesh
+    specs = param_specs.opt_state_shardings(
+        like, param_specs.specs_of(params), mesh)
+
+    def zeros(_, x, spec):
+        if x.dim() == 0:
+            return torch.zeros((), dtype=x.dtype, device=mesh.devices[0])
+        return zeros_sharded(tuple(x.shape), x.dtype, spec, mesh)
+    return param_specs.map_with_path(zeros, like, specs)
 
 
 def _step_scalars(step: torch.Tensor, lr: float, b1: float, b2: float,
@@ -121,9 +187,9 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params):
         step = state.step + 1
-        lr_t, b1c, b2c = _step_scalars(step, lr, b1, b2, warmup)
-        for leaves in zip(*(tree_leaves(t) for t in
-                            (grads, state.m, state.v, params))):
+        scalars = _OnDevice(*_step_scalars(step, lr, b1, b2, warmup))
+        for leaves in _leaf_sets(grads, state.m, state.v, params):
+            lr_t, b1c, b2c = scalars.on(leaves[-1].device)
             for g, m, v, p in _pieces(*leaves):
                 m_new, v_new = _moments(g.float(), m, v, b1, b2)
                 u = (m_new / b1c) / (torch.sqrt(v_new / b2c) + _f32(eps))
@@ -169,6 +235,16 @@ def _dequantize(codes: torch.Tensor, scale: torch.Tensor, shape):
     return x.reshape(*cb.shape[:-2], -1)[..., :n].reshape(shape)
 
 
+def _straddles_blocks(leaves) -> bool:
+    """Whether a `Sharded` parameter's last axis splits into blocks whose
+    width is not a whole number of quantisation blocks."""
+    p = leaves[-1]
+    if not p.shape:
+        return False
+    return p.shards[0].shape[-1] != p.shape[-1] and \
+        p.shards[0].shape[-1] % BLOCK != 0
+
+
 class Adam8bitState(NamedTuple):
     step: torch.Tensor
     m_codes: dict
@@ -196,10 +272,11 @@ def adam8bit(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params):
         step = state.step + 1
-        lr_t, b1c, b2c = _step_scalars(step, lr, b1, b2, warmup)
-        trees = (grads, state.m_codes, state.m_scale, state.v_codes,
-                 state.v_scale, params)
-        for leaves in zip(*(tree_leaves(t) for t in trees)):
+        scalars = _OnDevice(*_step_scalars(step, lr, b1, b2, warmup))
+        for leaves in _leaf_sets(grads, state.m_codes, state.m_scale,
+                                 state.v_codes, state.v_scale, params,
+                                 whole=_straddles_blocks):
+            lr_t, b1c, b2c = scalars.on(leaves[-1].device)
             for g, mc, ms, vc, vs, p in _pieces(*leaves):
                 g = g.float()
                 m = _dequantize(mc, ms, g.shape)
@@ -253,8 +330,8 @@ def adafactor(lr: float = 3e-4, eps: float = 1e-30, clip: float = 1.0) -> Optimi
         step = state.step + 1
         beta = 1.0 - torch.pow(step.float() + 1, -0.8)
         f_eps = _f32(eps)
-        for g, vr, vc, p in zip(*(tree_leaves(t) for t in
-                                  (grads, state.vr, state.vc, params))):
+        for g, vr, vc, p in _leaf_sets(grads, state.vr, state.vc, params,
+                                       whole=lambda leaves: True):
             g = g.float()
             g2 = g * g + f_eps
             if p.dim() >= 2:

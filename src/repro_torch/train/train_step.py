@@ -20,6 +20,18 @@ embedding) stay whole: a block used several times sums its gradients.  With ``gr
 the batch is split along its rows and the per-microbatch gradients are
 summed in ``grad_accum_dtype`` and averaged in float32, as the reference's
 scan does.
+
+On a ``(data, model)`` mesh (``make_train_step(cfg, optimizer, mesh)``) the
+state's parameters and optimizer state are trees of
+`parallel.sharding.Sharded` leaves placed by `parallel.param_specs`, and
+the batch splits its rows over the data axes.  The whole sharded step is
+one autograd graph: the backward of each layer's FSDP gather delivers
+every block its gradient summed over the ranks that read it, and a leaf's
+equal copies (the ranks its spec does not split over) then add their
+gradients, in rank order, so every copy holds the whole gradient.  The
+loss is each data shard's token sum (computed on its rank at model index
+0) added over the shards and divided by the global token count.
+``grad_norm`` counts one copy of each block.
 """
 from __future__ import annotations
 
@@ -27,14 +39,16 @@ import functools
 from typing import Mapping, NamedTuple, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..checkpoint.checkpoint import tree_leaves, tree_map
 from ..configs.base import ModelConfig
 from ..core.util import fp32_reciprocal
 from ..models import layers
 from ..models import model as model_lib
-from ..optim.adam import Optimizer
+from ..models.remat import remat_call
+from ..optim.adam import Optimizer, init_on_mesh
+from ..parallel import param_specs
+from ..parallel.sharding import NULL_CTX, Sharded, ShardingCtx, make_ctx
 
 
 class TrainState(NamedTuple):
@@ -66,6 +80,14 @@ def chunked_xent(hidden: torch.Tensor, emb_params, targets: torch.Tensor,
     backward: the (B, S, V) fp32 logits never exist at full size.  The
     chunk is ``chunk`` shrunk to a divisor of S."""
     B, S, _ = hidden.shape
+    return _xent_sum(hidden, emb_params, targets, softcap, chunk) \
+        * fp32_reciprocal(B * S)
+
+
+def _xent_sum(hidden: torch.Tensor, emb_params, targets: torch.Tensor,
+              softcap: float, chunk: int = 512) -> torch.Tensor:
+    """`chunked_xent`'s sum of the tokens' negative log-likelihoods."""
+    B, S, _ = hidden.shape
     c = min(chunk, S)
     while S % c:
         c -= 1
@@ -74,14 +96,46 @@ def chunked_xent(hidden: torch.Tensor, emb_params, targets: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // c):
         h, t = hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c]
-        total = total + (checkpoint(nll, h, t, use_reentrant=False)
-                         if remat else nll(h, t))
-    return total * fp32_reciprocal(B * S)
+        total = total + (remat_call(nll, h, t) if remat else nll(h, t))
+    return total
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict):
+def _loss_mesh(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
+    """`loss_fn` on a mesh: the forward on each rank's rows, then each data
+    shard's cross-entropy sum on its rank at model index 0, the shards'
+    sums added in order on the mesh's first device, over the global
+    token count."""
+    mesh = ctx.mesh
+    tokens = batch["tokens"]
+    if not isinstance(tokens, Sharded):
+        tokens = ctx.constrain(tokens, "batch", None)
+    xs, aux = model_lib.forward_ranks(params, cfg, tokens.shards, mesh)
+    emb = layers.unembed_weights(params["embedding"])
+    dp = param_specs.batch_axes(mesh)
+    first = mesh.devices[0]
+    total = None
+    for r, x in enumerate(xs):
+        c = mesh.coords(r)
+        if any(ci for a, ci in zip(mesh.axis_names, c) if a not in dp):
+            continue            # a copy of this data shard's hidden states
+        t = tokens.shards[r]
+        part = _xent_sum(x[:, :-1], emb[r], t[:, 1:],
+                         cfg.final_softcap).to(first)
+        total = part if total is None else total + part
+    B, S = tokens.shape
+    loss = total * fp32_reciprocal(B * (S - 1))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=first)
+    metrics = {"ce": loss, "moe_aux": aux}
+    metrics["loss"] = total_loss = loss + aux
+    return total_loss, metrics
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx = NULL_CTX):
     """``(loss, metrics)`` of ``batch["tokens"]`` predicting itself one
     position ahead (and, with an MTP head, two positions ahead)."""
+    if ctx.mesh is not None:
+        return _loss_mesh(params, cfg, batch, ctx)
     hidden, aux = model_lib.forward(params, cfg, batch, return_hidden=True)
     tokens = batch["tokens"]
     emb = params["embedding"]
@@ -110,6 +164,9 @@ def _grad_leaves(params, grads) -> dict:
     tree (`STACKED`) is a list of per-layer trees (``mamba_blocks`` a list
     of groups, each a list of layers)."""
     def leaf(p, g):
+        if isinstance(p, Sharded):
+            return Sharded([leaf(a, b) for a, b in zip(p.shards, g.shards)],
+                           p.spec, p.mesh, p.shape)
         t = p.detach().requires_grad_()
         t.grad = g
         return t
@@ -131,14 +188,49 @@ def _grad_leaves(params, grads) -> dict:
             else leaf(v, grads[k]) for k, v in params.items()}
 
 
-def grads_and_metrics(params, cfg: ModelConfig, batch: dict):
+def _map_blocks(fn, tree):
+    """``fn`` on every tensor of a tree, block by block in a `Sharded`."""
+    return tree_map(lambda x: Sharded([fn(s) for s in x.shards], x.spec,
+                                      x.mesh, x.shape)
+                    if isinstance(x, Sharded) else fn(x), tree)
+
+
+def _blocks(tree) -> list:
+    """A tree's tensors, a `Sharded` leaf's blocks in rank order."""
+    return [t for x in tree_leaves(tree)
+            for t in (x.shards if isinstance(x, Sharded) else (x,))]
+
+
+def _sum_replicas(g: Sharded) -> None:
+    """Every group of equal copies of a block: the copies' gradients added
+    in rank order (once a device) and written into each copy."""
+    for group in g.replica_groups():
+        if len(group) == 1:
+            continue
+        sums = {}
+        for q in group:
+            dev = g.shards[q].device
+            if dev not in sums:
+                acc = g.shards[group[0]].to(dev, copy=True)
+                for o in group[1:]:
+                    acc += g.shards[o].to(dev)
+                sums[dev] = acc
+        for q in group:
+            g.shards[q].copy_(sums[g.shards[q].device])
+
+
+def grads_and_metrics(params, cfg: ModelConfig, batch: dict,
+                      ctx: ShardingCtx = NULL_CTX):
     """``(grads, metrics)`` of one batch: grads a tree like ``params`` in
     the parameters' dtypes, metrics detached 0-d tensors."""
-    grads = tree_map(torch.zeros_like, params)
+    grads = _map_blocks(torch.zeros_like, params)
     leaves = _grad_leaves(params, grads)
     with torch.enable_grad():
-        loss, metrics = loss_fn(leaves, cfg, batch)
-        torch.autograd.backward(loss, inputs=tree_leaves(leaves))
+        loss, metrics = loss_fn(leaves, cfg, batch, ctx)
+        torch.autograd.backward(loss, inputs=_blocks(leaves))
+    for g in tree_leaves(grads):
+        if isinstance(g, Sharded):
+            _sum_replicas(g)
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -147,19 +239,60 @@ _NORM_PIECE = 2 ** 27      # elements a float32 temporary of `grad_norm` holds
 
 def grad_norm(grads) -> torch.Tensor:
     """Global L2 norm of a gradient tree: float32 squares summed piece by
-    piece (``sum``'s tree reduction on the card, cascade on the CPU)."""
-    sq = [(piece.float() ** 2).sum() for g in tree_leaves(grads)
+    piece (``sum``'s tree reduction on the card, cascade on the CPU); one
+    copy of each block of a `Sharded` leaf, the blocks' sums added on the
+    first block's device."""
+    blocks = [t for g in tree_leaves(grads)
+              for t in ([s for _, s in g.distinct()] if isinstance(g, Sharded)
+                        else (g,))]
+    first = blocks[0].device
+    sq = [(piece.float() ** 2).sum().to(first) for g in blocks
           for piece in g.reshape(-1).split(_NORM_PIECE)]
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
+def shard_state(state: TrainState, mesh,
+                like: Optional[TrainState] = None) -> TrainState:
+    """A single-device `TrainState` (on any device, the host's included)
+    placed onto ``mesh``: the parameters by `param_specs.param_shardings`
+    (or ``like``'s specs), the optimizer state by
+    `param_specs.opt_state_shardings`; the 0-d step counters on the mesh's
+    first device."""
+    first = mesh.devices[0]
+    if like is None:
+        p_specs = param_specs.param_shardings(state.params, mesh)
+        o_specs = param_specs.opt_state_shardings(state.opt_state, p_specs,
+                                                  mesh)
+    else:
+        p_specs = param_specs.specs_of(like.params)
+        o_specs = param_specs.specs_of(like.opt_state)
+    params = param_specs.shard_params(state.params, mesh, p_specs)
+    opt = param_specs.shard_params(state.opt_state, mesh, o_specs)
+    return TrainState(params=params, opt_state=opt,
+                      step=state.step.to(first))
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None):
+    """``(train_step, init_state)``.  With a ``mesh`` the state lives on it
+    (`init_state` draws the parameters on ``device`` and places them) and
+    ``train_step`` takes a global batch (on any device) or one already
+    split over the batch axes."""
     n_micro = max(1, cfg.grad_microbatches)
     acc_dt = torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16" \
         else torch.float32
+    ctx = make_ctx(mesh)
+    if mesh is not None:
+        model_lib.check_mesh_family(cfg)
 
     def init_state(gen: torch.Generator, device="cuda") -> TrainState:
         params = model_lib.init_params(cfg, gen, device)
+        if mesh is not None:
+            params = param_specs.shard_params(
+                params, mesh, fsdp_over_pod=cfg.fsdp_over_pod)
+            return TrainState(params=params,
+                              opt_state=init_on_mesh(optimizer, params),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device=mesh.devices[0]))
         step = torch.zeros((), dtype=torch.int32,
                            device=tree_leaves(params)[0].device)
         return TrainState(params=params, opt_state=optimizer.init(params),
@@ -167,7 +300,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
 
     def accumulate(params, batch):
         if n_micro == 1:
-            return grads_and_metrics(params, cfg, batch)
+            return grads_and_metrics(params, cfg, batch, ctx)
         if batch["tokens"].shape[0] % n_micro:
             raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does "
                              f"not split into {n_micro} microbatches")
@@ -175,16 +308,16 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer):
         g_acc = m_acc = None
         for i in range(n_micro):
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
-            g, m = grads_and_metrics(params, cfg, mb)
-            g = tree_map(lambda x: x.to(acc_dt), g)
+            g, m = grads_and_metrics(params, cfg, mb, ctx)
+            g = _map_blocks(lambda x: x.to(acc_dt), g)
             if g_acc is None:
                 g_acc, m_acc = g, m
             else:
-                for a, b in zip(tree_leaves(g_acc), tree_leaves(g)):
+                for a, b in zip(_blocks(g_acc), _blocks(g)):
                     a.add_(b)
                 m_acc = {k: m_acc[k] + m[k] for k in m_acc}
         inv = fp32_reciprocal(n_micro)
-        return (tree_map(lambda x: x.float() * inv, g_acc),
+        return (_map_blocks(lambda x: x.float() * inv, g_acc),
                 {k: v * inv for k, v in m_acc.items()})
 
     def train_step(state: TrainState, batch: dict):

@@ -17,6 +17,15 @@ The port of the reference's ``train/trainer.py``.  Contract:
 The starting state is drawn from the port's generator (``seed``), or handed
 over as the reference's parameter tree in numpy (the optimizer state then
 starts empty, as the reference's ``init_state`` starts it).
+
+With a ``mesh`` (`parallel.sharding.Mesh` with ``data`` and ``model`` axes)
+the state lives on the mesh (`train_step.make_train_step`), each batch is
+split over its data axes from the host, and a checkpoint holds the
+gathered tree in the reference's format (assembled on the host); a resume
+restores it on the host and places it by the running state's specs.
+``ckpt_every <= 0`` writes no checkpoint at all (the port's addition: a
+state too large to gather on the host, as a model trained across cards
+is).
 """
 from __future__ import annotations
 
@@ -35,8 +44,9 @@ from ..checkpoint import checkpoint as ckpt_lib
 from ..configs.base import ModelConfig
 from ..core.util import resolve_device
 from ..data.pipeline import DataConfig, DriftMonitor, TokenStream
-from ..optim.adam import OPTIMIZERS
-from .train_step import TrainState, make_train_step
+from ..optim.adam import OPTIMIZERS, init_on_mesh
+from ..parallel import param_specs
+from .train_step import TrainState, make_train_step, shard_state
 
 
 class StragglerMonitor:
@@ -71,19 +81,23 @@ class TrainerConfig:
 
 class Trainer:
     """``device`` holds the model, the optimizer state and the drift
-    monitor (the card by default; raises without one)."""
+    monitor (the card by default; raises without one); with a ``mesh`` the
+    model and the optimizer state live on the mesh, the monitor and the
+    step counter on its first device."""
 
     def __init__(self, model_cfg: ModelConfig, data_cfg: DataConfig,
                  cfg: TrainerConfig, device="cuda",
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print, mesh=None):
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else resolve_device(device)
         self.log = log_fn
         opt = OPTIMIZERS[cfg.optimizer](lr=cfg.lr)
         self.optimizer = opt
-        self._step_fn, self._init_fn = make_train_step(model_cfg, opt)
+        self._step_fn, self._init_fn = make_train_step(model_cfg, opt, mesh)
         self.ckpt = ckpt_lib.AsyncCheckpointer()
         self.straggler = StragglerMonitor()
         self.monitor = (DriftMonitor(data_cfg, self.device)
@@ -97,11 +111,36 @@ class Trainer:
         if init is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return self._init_fn(gen, self.device)
+        step = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.mesh is not None:
+            params = param_specs.shard_params(
+                convert.train_params_from_numpy(init, "cpu"), self.mesh,
+                fsdp_over_pod=self.model_cfg.fsdp_over_pod)
+            return TrainState(params=params,
+                              opt_state=init_on_mesh(self.optimizer, params),
+                              step=step)
         params = convert.train_params_from_numpy(init, self.device)
         return TrainState(params=params,
-                          opt_state=self.optimizer.init(params),
-                          step=torch.zeros((), dtype=torch.int32,
-                                           device=self.device))
+                          opt_state=self.optimizer.init(params), step=step)
+
+    def _restore(self, path, state: TrainState, stream):
+        """The checkpoint at ``path`` into ``state``'s structure (on the
+        mesh: restored on the host, placed by ``state``'s specs)."""
+        if self.mesh is None:
+            payload = {"state": state, "stream": stream.state()}
+            return ckpt_lib.restore(path, payload, self.device)
+        like = param_specs.meta_like(state)
+        payload, step = ckpt_lib.restore(
+            path, {"state": like, "stream": stream.state()}, "cpu")
+        restored = shard_state(payload["state"], self.mesh, like=state)
+        return {"state": restored, "stream": payload["stream"]}, step
+
+    def _saved(self, state: TrainState):
+        """What a checkpoint holds: the state, gathered on the host on a
+        mesh."""
+        if self.mesh is None:
+            return state
+        return param_specs.gather_params(state, device="cpu")
 
     def run(self, seed: int = 0, init=None) -> dict:
         stream = TokenStream(self.data_cfg)
@@ -109,9 +148,8 @@ class Trainer:
         start = 0
         latest = ckpt_lib.latest_step(self.cfg.ckpt_dir)
         if latest is not None:
-            payload = {"state": state, "stream": stream.state()}
-            payload, step = ckpt_lib.restore(self._ckpt_path(latest), payload,
-                                             self.device)
+            payload, step = self._restore(self._ckpt_path(latest), state,
+                                          stream)
             state, start = payload["state"], step
             stream.restore(payload["stream"])
             self.log(f"[trainer] resumed from step {start}")
@@ -120,7 +158,9 @@ class Trainer:
         for step in range(start, self.cfg.steps):
             tokens = stream.next_batch()
             drift = self.monitor.observe(tokens) if self.monitor else None
-            batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+            batch = {"tokens": torch.from_numpy(tokens)}
+            if self.mesh is None:
+                batch["tokens"] = batch["tokens"].to(self.device)
             t0 = time.time()
             state, metrics = self._step_fn(state, batch)
             loss = float(metrics["loss"])
@@ -135,10 +175,12 @@ class Trainer:
             if (step + 1) % self.cfg.log_every == 0:
                 self.log(f"[trainer] step {step+1} loss {rec['loss']:.4f} "
                          f"({dt*1e3:.0f} ms{' STRAGGLER' if slow else ''})")
-            if (step + 1) % self.cfg.ckpt_every == 0 \
-                    or step + 1 == self.cfg.steps:
+            if self.cfg.ckpt_every > 0 and (
+                    (step + 1) % self.cfg.ckpt_every == 0
+                    or step + 1 == self.cfg.steps):
                 self.ckpt.save(self._ckpt_path(step + 1),
-                               {"state": state, "stream": stream.state()},
+                               {"state": self._saved(state),
+                                "stream": stream.state()},
                                step + 1)
         self.ckpt.wait()
         return {"state": state, "metrics": metrics, "history": self.history}

@@ -32,6 +32,9 @@ path: the flash attention `Function` against autograd through a dense
 masked softmax, the drift monitor's one chunk a batch against the
 per-example SW-AKDE updates, a train step that repeats bit for bit, and
 one train step of each other family's smoke config equal to the CPU's.
+LM training on a (data, model) mesh: a 2 x 2 mesh of one card repeated
+equal to the same mesh on the CPU (dense and ``moe_ep``), and cards 0..3
+equal to one card repeated.
 """
 import pytest
 import torch
@@ -1239,3 +1242,105 @@ def test_family_train_step_on_the_card_matches_the_cpu(dev, arch):
     for (k, want), (_, got) in zip(_flatten(trees[cpu]), _flatten(trees[dev])):
         torch.testing.assert_close(got.cpu(), want, rtol=0,
                                    atol=2 * lr_t + 1e-7, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# LM training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_LR = 1e-3
+
+
+def _mesh_step(cfg, mesh, tree, tokens):
+    """One AdamW step (lr MESH_LR, no warmup) of ``tree`` on ``mesh``:
+    (gathered parameters, gathered first moment, metrics)."""
+    from repro_torch.optim import adam
+    from repro_torch.parallel import param_specs
+    from repro_torch.train import train_step
+    opt = adam.adamw(lr=MESH_LR, warmup=1)
+    step, _ = train_step.make_train_step(cfg, opt, mesh)
+    params = param_specs.shard_params(tree, mesh)
+    state = train_step.TrainState(params, adam.init_on_mesh(opt, params),
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=mesh.devices[0]))
+    state, m = step(state, {"tokens": tokens})
+    return (param_specs.gather_params(state.params, "cpu"),
+            param_specs.gather_params(state.opt_state.m, "cpu"), m)
+
+
+def _assert_mesh_step_close(got, want, gtol, mtol=1e-5, ntol=1e-4):
+    """Two `_mesh_step` results: the gradients (AdamW's first moment after
+    one step, ``(1 - b1) g``) leaf by leaf within ``gtol(name)`` of each
+    leaf's largest, the metrics within ``mtol`` relative (the grad norm
+    ``ntol``); the parameters within ``rtol 2e-4, atol 2e-5`` (the
+    reference's bounds), but where the two gradients differ by more than
+    half of ``want``'s or ``want``'s is under 100 eps (there the update
+    g / (|g| + eps) may take either sign) within that bound plus
+    ``2 MESH_LR``."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    (pa, ga, ma), (pb, gb, mb) = got, want
+    for k, v in mb.items():
+        rtol = ntol if k == "grad_norm" else mtol
+        assert abs(float(ma[k]) - float(v)) <= rtol * abs(float(v)) + 1e-12, k
+    for (k, a), (_, b), (_, x), (_, y) in zip(_flatten(pa), _flatten(pb),
+                                              _flatten(ga), _flatten(gb)):
+        top = float(y.abs().max())
+        assert float((x - y).abs().max()) <= gtol(k) * top, k
+        free = ((x - y).abs() > 0.5 * y.abs()) | (y.abs() <= 1e-7)
+        bound = 2e-5 + 2e-4 * b.abs() + torch.where(free, 2 * MESH_LR, 0.0)
+        assert bool(((a - b).abs() <= bound).all()), k
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_mesh_train_step_on_the_card_matches_the_cpu_mesh(dev, arch):
+    """The smoke config's fp32 step on a 2 x 2 mesh of one card repeated
+    against the same mesh of CPU entries (``moe_ep`` for deepseek-moe-16b,
+    whose ranks' bf16 combine may round a sum either way: its gradients
+    within 2e-2 of their largest, ``moe_ep``'s bf16 bound; qwen3-4b's
+    within 1e-4), by `_assert_mesh_step_close`."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              param_dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (8, 32),
+                           generator=torch.Generator().manual_seed(6))
+    got = _mesh_step(cfg, make_test_mesh(2, 2, "cuda:0"), tree, tokens)
+    want = _mesh_step(cfg, make_test_mesh(2, 2, "cpu"), tree, tokens)
+    tol = 2e-2 if cfg.family == "moe" else 1e-4
+    _assert_mesh_step_close(got, want, lambda k: tol)
+
+
+def test_mesh_on_four_cards_matches_one_card_repeated(dev):
+    """The deepseek-moe-16b smoke step on cuda:0..3 (data 2 x model 2)
+    against the same mesh on cuda:0 repeated: the collectives' peer copies
+    change no value, and only the order in which a block's gradient terms
+    from several ranks add up differs (each card's backward runs on a
+    thread of its own): metrics within 1e-6 relative, gradients within
+    1e-4 of their largest, parameters as `_assert_mesh_step_close` holds
+    them.  On the four cards the step repeats bit for bit (each
+    all-gather's backward adds a block's terms in rank order, whichever
+    card's thread runs it)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    cfg = dataclasses.replace(registry.get_smoke_config("deepseek-moe-16b"),
+                              param_dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (8, 32),
+                           generator=torch.Generator().manual_seed(8))
+    got = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
+    again = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
+    assert {k: float(v) for k, v in got[2].items()} == \
+        {k: float(v) for k, v in again[2].items()}
+    for a, b in zip(got[:2], again[:2]):
+        for (k, x), (_, y) in zip(_flatten(a), _flatten(b)):
+            assert torch.equal(x, y), k
+    want = _mesh_step(cfg, make_test_mesh(2, 2, "cuda:0"), tree, tokens)
+    _assert_mesh_step_close(got, want, lambda k: 1e-4, mtol=1e-6, ntol=1e-6)

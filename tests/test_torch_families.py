@@ -9,7 +9,9 @@ xlstm-125m (2 mLSTM/sLSTM pairs), whisper-large-v3 (2 + 2 layers over 32
 synthetic frames) and internvl2-76b (3 layers, 8 patches before 64 text
 tokens).  The tree is drawn with numpy (`torch_parity.lm_tree_np`); the
 frontends' frames and patches are bfloat16, as ``launch/inputs.py`` gives
-them.  The reference's forward and loss gradient compile once a config.
+them.  The reference's loss gradient compiles once a config, and its
+logits are its ``unembed`` of that gradient's forward hidden states
+(`_jref`).
 
 Tolerances, as ``tests/test_torch_model.py`` holds the dense family (fp32
 sums in another order): logits (and deepseek-v3's MTP logits) within 2e-5
@@ -25,7 +27,9 @@ their largest value, 2^-8 (seen: logits 8.6e-6, gradients 9.7e-5 on
 Then the port's `Trainer` (AdamW, drift monitor on) on deepseek-moe-16b's
 smoke config over 4 steps of the reference's token stream against the
 reference's train step on the same batches, its two halves compiled apart
-(the loss gradient, shared with the family test, and AdamW's update):
+(the loss gradient, shared with the family test, and AdamW's update, at
+`torch_parity.XLA_FAST`: a multiply-add XLA does not contract moves an
+update by an ulp, far inside these bounds):
 losses within 1e-5 relative step by step (the aux loss part of each),
 then the parameters within 1e-5 absolute (an Adam step moves a parameter
 by at most lr = 1e-3 times its warmup fraction), as
@@ -49,7 +53,7 @@ from repro.configs import registry as jregistry
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import TokenStream as JTokenStream
 from repro.launch import inputs as jinputs
-from repro.models import model as jmodel
+from repro.models import layers as jlayers
 from repro.optim import adam as jadam
 from repro.train import train_step as jts
 from repro_torch import convert
@@ -86,15 +90,38 @@ _JREF: dict = {}
 
 def _jref(cfg):
     """The reference's (logits, MTP logits, loss metrics, gradients),
-    compiled once a config."""
+    compiled once a config.  One forward serves both: the loss gradient's
+    own forward (``loss_fn`` calls ``forward(return_hidden=True)``) hands
+    out its final hidden states (and MTP hidden states), and the logits are
+    the reference's ``layers.unembed`` of them, which is the last step of
+    the reference's ``forward``: a second forward traced and compiled for
+    the logits alone cost a third of each config's compile."""
     if cfg not in _JREF:
         ctx = jts.make_ctx(None)
 
         def f(params, batch):
-            logits, aux = jmodel.forward(params, cfg, batch)
-            (_, m), g = jax.value_and_grad(
-                lambda p: jts.loss_fn(p, cfg, batch, ctx), has_aux=True)(params)
-            return logits, aux.get("mtp_logits"), m, g
+            seen = {}
+
+            def forward(*args, **kw):
+                seen["out"] = jmodel_forward(*args, **kw)
+                return seen["out"]
+
+            def loss(p):
+                total, m = jts.loss_fn(p, cfg, batch, ctx)
+                return total, (m, seen["out"])
+
+            jmodel_forward = jts.model_lib.forward
+            jts.model_lib.forward = forward      # while this traces
+            try:
+                (_, (m, (hidden, aux))), g = jax.value_and_grad(
+                    loss, has_aux=True)(params)
+            finally:
+                jts.model_lib.forward = jmodel_forward
+            unembed = lambda h: jlayers.unembed(params["embedding"], h, ctx,
+                                                cfg.final_softcap)
+            mtp = aux.get("mtp_hidden")
+            return (unembed(hidden), None if mtp is None else unembed(mtp),
+                    m, g)
         _JREF[cfg] = fast_jit(f)
     return _JREF[cfg]
 
@@ -179,8 +206,8 @@ def test_moe_trainer_matches_reference_and_resumes(tmp_path):
     tree = lm_tree_np(cfg, 20)
     out = _trainer(tmp_path / "adamw", 4, "adamw", data).run(init=tree)
     opt = jadam.adamw(lr=LR)
-    update = jax.jit(opt.update)          # XLA's default options
-    params, opt_state = tree, jax.jit(opt.init)(tree)
+    update = fast_jit(opt.update)
+    params, opt_state = tree, opt.init(jax.tree.map(jnp.asarray, tree))
     stream, losses = JTokenStream(JDataConfig(**data)), []
     for _ in range(4):
         *_, m, g = _jref(cfg)(params, {"tokens": stream.next_batch()})

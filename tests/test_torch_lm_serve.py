@@ -31,8 +31,7 @@ from repro.serve import serve_step as jserve
 from repro_torch import convert
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import model as tmodel
-from repro_torch.models import moe as tmoe
-from repro_torch.parallel.sharding import Mesh
+from repro_torch.parallel.sharding import Mesh, make_ctx
 from repro_torch.serve import serve_step as tserve
 
 S, B, LEN0, STEPS, BLOCK = 1024, 2, 600, 4, 512
@@ -183,7 +182,7 @@ def test_sketch_decode_bf16_within_reference_bound(monkeypatch):
 def test_registry_lists_only_ported_configs():
     """Every architecture of the reference is listed, decodes and runs its
     forward (deepseek-v3's with the MTP head); what the port still refuses
-    is the MoE layer under a mesh (expert parallelism)."""
+    is an MLA model on a (data, model) mesh."""
     assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS)
     cfg = tregistry.get_smoke_config("deepseek-v3-671b")
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -191,8 +190,6 @@ def test_registry_lists_only_ported_configs():
     with torch.no_grad():
         logits, aux = tmodel.forward(params, cfg, {"tokens": tokens})
     assert logits.shape == aux["mtp_logits"].shape == (1, 4, cfg.vocab)
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe(tmodel.layer_params(params["moe_blocks"], 0)["moe"], x,
-                 topk=cfg.moe_topk, capacity_factor=1.0,
-                 mesh=Mesh(("cpu",) * 2))
+    mesh = Mesh(("cpu",) * 2, axis_names=("data", "model"), axis_sizes=(1, 2))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tmodel.forward(params, cfg, {"tokens": tokens}, ctx=make_ctx(mesh))

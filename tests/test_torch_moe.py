@@ -83,8 +83,10 @@ def test_moe_dense_matches_reference(cf):
     y_j = np.asarray(y_j).reshape(B * S, 64)[:first]
     assert_rel(y_t.reshape(B * S, 64)[:first], y_j, 1e-5)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmoe.moe(pt, _T(x), topk=k, capacity_factor=cf, mesh=("cpu",))
+    # without a mesh the entry point is the dense path (a mesh runs moe_ep:
+    # tests/test_torch_lm_mesh.py)
+    y_e, aux_e = tmoe.moe(pt, _T(x), topk=k, capacity_factor=cf)
+    assert torch.equal(y_e, y_t) and torch.equal(aux_e, aux_t)
 
 
 def test_mla_latent_queries_and_decode_block_match_reference():

@@ -121,7 +121,13 @@ def port_params(ref_params, device="cpu"):
 # compile by default.
 XLA_FAST = {"xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True,
-            "xla_cpu_use_fusion_emitters": False}
+            "xla_cpu_use_fusion_emitters": False,
+            # one LLVM module, not several compiled in parallel (the tests
+            # run a process a core), and copy insertion without its region
+            # analysis: ~15% of a smoke model's loss-gradient compile, and
+            # neither changes what the program computes
+            "xla_cpu_parallel_codegen_split_count": 1,
+            "xla_cpu_copy_insertion_use_region_analysis": False}
 GEMMA_2L = dataclasses.replace(jgemma.smoke(), n_layers=2,
                                param_dtype="float32")
 QWEN = dataclasses.replace(jqwen.smoke(), param_dtype="float32")
