@@ -127,22 +127,32 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> ParamTree:
     return ParamTree(_tree(tree, resolve_device(device)))
 
 
-def lm_cache_from_numpy(cache: Mapping[str, Any], device="cuda") -> dict:
+def lm_cache_from_numpy(cache: Mapping[str, Any], device="cuda", mesh=None,
+                        cfg=None) -> dict:
     """A reference decode cache of any family (``k``/``v``, ``dk``/``dv``,
     ``c``/``kr``, ``ssm_state``/``conv_buf``, the xLSTM states with their
     -inf stabilisers, ``xk``/``xv``, ``block_sigs``, and a 0-d ``length``)
     → the port's cache: every leaf in its own dtype and values, ``length``
-    a Python int."""
+    a Python int.  With a ``mesh`` (and the model's ``cfg``) each leaf is
+    placed on it per `serve.kv_cache.cache_specs` (from the host)."""
+    if mesh is not None:
+        from .serve import kv_cache
+        return kv_cache.shard_cache(lm_cache_from_numpy(cache, "cpu"), cfg,
+                                    mesh)
     device = resolve_device(device)
     return {k: int(v) if k == "length" else _tensor(v, device)
             for k, v in cache.items()}
 
 
 def lm_cache_to_numpy(cache: Mapping[str, Any]) -> dict:
-    """A port cache → dict of numpy arrays (bfloat16 leaves as float32,
-    which holds them exactly) and ``length`` as an int."""
+    """A port cache (on a mesh too: each leaf gathered) → dict of numpy
+    arrays (bfloat16 leaves as float32, which holds them exactly) and
+    ``length`` as an int."""
+    from .parallel.sharding import Sharded
     out = {}
     for k, v in cache.items():
+        if isinstance(v, Sharded):
+            v = v.full("cpu")
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu()
             v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()

@@ -9,6 +9,10 @@
 //   p < kv_len of  s = softcap * tanh((q . k_p) * scale / softcap)  (or
 //   (q . k_p) * scale when softcap <= 0), scale = 1/sqrt(dh), times v_p;
 //   out = acc / max(l, 1e-30) where l > 0, else 0 (an empty list gives 0).
+// The partial entry (sketch_decode_attn_lse_launch) runs the same kernels
+// over one rank's block of a sequence split over a mesh and also writes
+// lse (B, Hkv, G) fp32 = m + log(l) of each query row, -inf where nothing
+// is live, so the ranks' outputs merge by their log-sum-exps.
 //
 // Replaces: the Pallas kernel `sketch_decode_attn` in
 // src/repro/kernels/sketch_decode_attn.py (grid (Hkv, nb_max) for one
@@ -670,10 +674,14 @@ cudaError_t launch_pipe_g(const void* q, int q_bf16, const void* k,
 
 // Combine the n_split partials of each (request, KV head) in split order.
 // Grid (B * Hkv, ceil(G * dh / kThreads)): one output element a thread;
-// every block first stages the splits' (m, l) in shared memory.
+// every block first stages the splits' (m, l) in shared memory.  With lse
+// (the partial entry of a rank that holds one block of a sequence split
+// over a mesh), the first block of each (request, KV head) also writes
+// each query row's log-sum-exp, m + log(l), or -inf where nothing is live.
 __global__ void __launch_bounds__(kThreads) sketch_decode_attn_combine(
     const float* __restrict__ part_ml, const float* __restrict__ part_acc,
-    float* __restrict__ out, int G, int dh, int n_split) {
+    float* __restrict__ out, float* __restrict__ lse, int G, int dh,
+    int n_split) {
   extern __shared__ float ml_sh[];   // (n_split, G) m, then weights; then l
   float* w_s = ml_sh;
   float* l_s = ml_sh + n_split * G;
@@ -703,6 +711,8 @@ __global__ void __launch_bounds__(kThreads) sketch_decode_attn_combine(
     for (int s = 0; s < n_split; ++s)
       l_all = fmaf(l_s[s * G + tid], w_s[s * G + tid], l_all);
     total_s[tid] = l_all;
+    if (lse != nullptr && blockIdx.y == 0)
+      lse[bh * G + tid] = l_all > 0.f ? m_all_s[tid] + logf(l_all) : -INFINITY;
   }
   __syncthreads();
   const int i = blockIdx.y * kThreads + tid;
@@ -743,15 +753,14 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Both launches of one call; returns the first launch error (0 if none).
-extern "C" int sketch_decode_attn_launch(
+// lse: null, or (B, Hkv, G) fp32 that the combine fills.
+int launch_both(
     const void* q, const void* k, const void* v, const int* block_ids,
-    const int* n_live, float* part_ml, float* part_acc, float* out, int B,
-    int Hkv, int G, int dh, int S, int nb_max, int kv_len, int block_size,
-    int n_split, int q_bf16, int kv_bf16, float scale, float softcap,
-    float inv_softcap, void* stream) {
+    const int* n_live, float* part_ml, float* part_acc, float* out,
+    float* lse, int B, int Hkv, int G, int dh, int S, int nb_max, int kv_len,
+    int block_size, int n_split, int q_bf16, int kv_bf16, float scale,
+    float softcap, float inv_softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
@@ -794,6 +803,33 @@ extern "C" int sketch_decode_attn_launch(
   const size_t smem = 2 * static_cast<size_t>(n_split) * G * sizeof(float);
   const dim3 grid(B * Hkv, (G * dh + kThreads - 1) / kThreads);
   sketch_decode_attn_combine<<<grid, kThreads, smem, s>>>(
-      part_ml, part_acc, out, G, dh, n_split);
+      part_ml, part_acc, out, lse, G, dh, n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The whole-cache entry: out only.
+extern "C" int sketch_decode_attn_launch(
+    const void* q, const void* k, const void* v, const int* block_ids,
+    const int* n_live, float* part_ml, float* part_acc, float* out, int B,
+    int Hkv, int G, int dh, int S, int nb_max, int kv_len, int block_size,
+    int n_split, int q_bf16, int kv_bf16, float scale, float softcap,
+    float inv_softcap, void* stream) {
+  return launch_both(q, k, v, block_ids, n_live, part_ml, part_acc, out,
+                     nullptr, B, Hkv, G, dh, S, nb_max, kv_len, block_size,
+                     n_split, q_bf16, kv_bf16, scale, softcap, inv_softcap,
+                     stream);
+}
+
+// The partial entry of a rank's block of a sequence: out and its lse.
+extern "C" int sketch_decode_attn_lse_launch(
+    const void* q, const void* k, const void* v, const int* block_ids,
+    const int* n_live, float* part_ml, float* part_acc, float* out,
+    float* lse, int B, int Hkv, int G, int dh, int S, int nb_max, int kv_len,
+    int block_size, int n_split, int q_bf16, int kv_bf16, float scale,
+    float softcap, float inv_softcap, void* stream) {
+  return launch_both(q, k, v, block_ids, n_live, part_ml, part_acc, out, lse,
+                     B, Hkv, G, dh, S, nb_max, kv_len, block_size, n_split,
+                     q_bf16, kv_bf16, scale, softcap, inv_softcap, stream);
 }

@@ -51,6 +51,7 @@ SIGNATURES = {
     "cand_score_launch": [P, P, P, I, I, P],
     "srp_hash_launch": [P, P, P, P, I, I, I, I, I, P],
     "sketch_decode_attn_launch": [P] * 8 + [I] * 11 + [F] * 3 + [P],
+    "sketch_decode_attn_lse_launch": [P] * 9 + [I] * 11 + [F] * 3 + [P],
 }
 
 LAUNCHES = {"race_hist": 0, "sann_table_scatter": 0, "batch_score_topk": 0,

@@ -132,3 +132,18 @@ def sketch_decode_attn(q, k, v, block_ids, n_live, kv_len,
                            k.shape[-3] // block_size)
     return ref.sketch_decode_attn_ref(q, k, v, live if batched else live[0],
                                       kv_len, block_size, softcap)
+
+
+def sketch_decode_attn_partial(q, k, v, block_ids, n_live, kv_len: int,
+                               block_size: int = 512, softcap: float = 0.0):
+    """`sketch_decode_attn` over one rank's block of a sequence split over a
+    mesh, un-merged (batched shapes; ids and ``kv_len`` local to the block)
+    → ``(o, lse)`` for `parallel.sharding.merge_partials` (see
+    `_sda.sketch_decode_attn_partial`).  On the CPU the live list becomes a
+    block mask for `ref.sketch_decode_attn_partial_ref`."""
+    if use_kernel(k):
+        return _sda.sketch_decode_attn_partial(q, k, v, block_ids, n_live,
+                                               kv_len, block_size, softcap)
+    live = _sda.block_mask(block_ids, n_live, k.shape[1] // block_size)
+    return ref.sketch_decode_attn_partial_ref(q, k, v, live, kv_len,
+                                              block_size, softcap)

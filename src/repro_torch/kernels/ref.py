@@ -331,3 +331,26 @@ def sketch_decode_attn_ref(
     w = e / e.sum(-1, keepdim=True)
     w = torch.where(torch.isnan(w), 0.0, w)   # all-masked rows → zero output
     return torch.einsum("bhgs,bshd->bhgd", w, v.float())
+
+
+def sketch_decode_attn_partial_ref(q, k, v, block_live, kv_len,
+                                   block_size: int, softcap: float = 0.0):
+    """`sketch_decode_attn_ref` over one rank's block of the sequence, un-
+    merged: ``(o, lse)``, ``o`` the normalised output (zeros where nothing
+    is live) and ``lse (B, Hkv, G)`` fp32 the log-sum-exp of its scores
+    (-inf where nothing is live), for `parallel.sharding.merge_partials`.
+    Batched shapes only."""
+    S, dh = k.shape[1], q.shape[-1]
+    scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * dh ** -0.5
+    if softcap and softcap > 0.0:
+        scores = softcap * torch.tanh(scores * fp32_reciprocal(softcap))
+    pos = torch.arange(S, device=k.device)
+    live = block_live[:, pos // block_size] & (pos < kv_len)         # (B, S)
+    scores = torch.where(live[:, None, None, :], scores, float("-inf"))
+    m = scores.amax(-1)
+    e = torch.exp(scores - torch.clamp(m, min=-1e30)[..., None])
+    l = e.sum(-1)
+    o = torch.einsum("bhgs,bshd->bhgd", e, v.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    return o, lse

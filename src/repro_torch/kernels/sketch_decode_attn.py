@@ -7,7 +7,10 @@ a sequential grid axis.  Here the list is split over thread blocks, each
 streaming its share through a ring of cp.async tiles, and a second launch
 combines the splits; see the source note for the bound and the design.
 One call launches both kernels and counts as one launch in
-``LAUNCHES["sketch_decode_attn"]``.
+``LAUNCHES["sketch_decode_attn"]``.  `sketch_decode_attn_partial` is the
+entry of a rank that holds one block of a sequence split over a mesh: the
+same kernels, the combine also writing the log-sum-exp, so the ranks'
+results merge (`parallel.sharding.merge_partials`).
 """
 from __future__ import annotations
 
@@ -56,6 +59,28 @@ def sketch_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return sketch_decode_attn(q[None], k[None], v[None], block_ids[None],
                                   n_live.reshape(1), kv_len, block_size,
                                   softcap)[0]
+    return _launch(q, k, v, block_ids, n_live, kv_len, block_size, softcap,
+                   with_lse=False)[0]
+
+
+def sketch_decode_attn_partial(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, block_ids: torch.Tensor,
+                               n_live: torch.Tensor, kv_len: int,
+                               block_size: int = 512, softcap: float = 0.0):
+    """The kernel over one rank's block of the cache's sequence, un-merged
+    (batched shapes of `sketch_decode_attn`; ``block_ids`` and ``kv_len``
+    local to the block) → ``(o (B, Hkv, G, dh), lse (B, Hkv, G))`` fp32:
+    the normalised output (zeros where nothing is live) and its
+    log-sum-exp (-inf there), the partial that
+    `parallel.sharding.merge_partials` combines across ranks.  The same
+    two launches, the combine writing ``lse`` beside ``o``; one launch
+    counted."""
+    return _launch(q, k, v, block_ids, n_live, kv_len, block_size, softcap,
+                   with_lse=True)
+
+
+def _launch(q, k, v, block_ids, n_live, kv_len, block_size: int,
+            softcap: float, with_lse: bool):
     if isinstance(kv_len, torch.Tensor):
         kv_len = int(kv_len.reshape(-1)[0])
     B, Hkv, G, dh = q.shape
@@ -81,20 +106,27 @@ def sketch_decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     n_split = default_n_split(B, Hkv, nb_max, block_size, _n_sms(dev.index))
     out = torch.empty((B, Hkv, G, dh), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Hkv, G), dtype=torch.float32, device=dev) \
+        if with_lse else None
     if B * Hkv == 0:
-        return out
+        return out, lse
     # one scratch tensor: the splits' accumulators, then their (m, l)
     n_acc = B * Hkv * n_split * G * dh
     scratch = torch.empty(n_acc + B * Hkv * n_split * G * 2,
                           dtype=torch.float32, device=dev)
     softcap = float(softcap)
     inv_softcap = fp32_reciprocal(softcap) if softcap > 0.0 else 0.0
-    _build.launch("sketch_decode_attn", "sketch_decode_attn_launch",
-                  q, k, v, block_ids, n_live, scratch[n_acc:], scratch, out,
-                  B, Hkv, G, dh, S, nb_max, kv_len, block_size, n_split,
-                  int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-                  dh ** -0.5, softcap, inv_softcap)
-    return out
+    args = (q, k, v, block_ids, n_live, scratch[n_acc:], scratch, out)
+    scalars = (B, Hkv, G, dh, S, nb_max, kv_len, block_size, n_split,
+               int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+               dh ** -0.5, softcap, inv_softcap)
+    if with_lse:
+        _build.launch("sketch_decode_attn", "sketch_decode_attn_lse_launch",
+                      *args, lse, *scalars)
+    else:
+        _build.launch("sketch_decode_attn", "sketch_decode_attn_launch",
+                      *args, *scalars)
+    return out, lse
 
 
 def compact_live(live: torch.Tensor):

@@ -155,13 +155,15 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+def _mlp_hidden(params, x: torch.Tensor, act) -> torch.Tensor:
     h = x @ params["w_up"]
     if "w_gate" in params:
-        h = act(x @ params["w_gate"]) * h
-    else:
-        h = act(h)
-    return h @ params["w_down"]
+        return act(x @ params["w_gate"]) * h
+    return act(h)
+
+
+def mlp(params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    return _mlp_hidden(params, x, act) @ params["w_down"]
 
 
 def init_embedding(gen, vocab: int, d_model: int, dtype, device,
@@ -202,10 +204,11 @@ def rank_leaves(leaf, n: int, keep=()) -> list:
 
 
 def gathered_tree(tree) -> list:
-    """One dict a rank of a tree's `Sharded` leaves gathered whole."""
+    """One dict a rank of a tree's `Sharded` leaves gathered whole; of a
+    tree on one device, the tree itself as its one rank's."""
     keys = list(tree)
     cols = {k: (gathered_tree(tree[k]) if isinstance(tree[k], dict)
-                else tree[k].gathered()) for k in keys}
+                else rank_leaves(tree[k], 1)) for k in keys}
     n = len(next(iter(cols.values())))
     return [{k: cols[k][r] for k in keys} for r in range(n)]
 
@@ -271,33 +274,42 @@ def attention_ranks(params, hs: list, positions: list, mesh, *,
     return sharding.psum(parts, mesh, "model")
 
 
-def mlp_ranks(params, hs: list, mesh, act=F.silu) -> list:
+def mlp_ranks(params, hs: list, mesh, act=F.silu, sum_dtype=None) -> list:
     """`mlp` of one activation a rank: column-parallel ``w_up`` /
     ``w_gate`` and row-parallel ``w_down`` with one sum over ``model``
     where all three split their FFN dim over it, else the weights
     gathered whole on every rank (with no ``mesh``: `mlp` on one
-    device)."""
+    device).  The row-parallel products are summed in the activations'
+    dtype, as the reference sums them; with ``sum_dtype`` (the decode's
+    float32) each rank's product is taken and the ranks' products summed
+    in it, and the sum rounded once to the activations' dtype, as one
+    device rounds its product."""
     M = mesh.shape.get("model", 1) if mesh is not None else 1
     names = [k for k in ("w_up", "w_gate") if k in params]
     tp = M > 1 and all(_model_split(params[k], -1) for k in names) \
         and _model_split(params["w_down"], -2)
     w = {k: rank_leaves(params[k], len(hs), keep=("model",) if tp else ())
          for k in names + ["w_down"]}
-    outs = [mlp({k: v[r] for k, v in w.items()}, h, act=act)
-            for r, h in enumerate(hs)]
-    return sharding.psum(outs, mesh, "model") if tp else outs
+    if not (tp and sum_dtype is not None):
+        outs = [mlp({k: v[r] for k, v in w.items()}, h, act=act)
+                for r, h in enumerate(hs)]
+        return sharding.psum(outs, mesh, "model") if tp else outs
+    outs = [_mlp_hidden({k: v[r] for k, v in w.items()}, h, act).to(sum_dtype)
+            @ w["w_down"][r].to(sum_dtype) for r, h in enumerate(hs)]
+    return [o.to(h.dtype) for o, h in
+            zip(sharding.psum(outs, mesh, "model"), hs)]
 
 
 def embed_ranks(params, tokens: list) -> list:
     """`embed` of one token block a rank, the vocab-split table gathered
     whole on each rank (the reference's choice: gathering the table beats
-    summing activations over the vocab)."""
-    table = params["embed"].gathered()
+    summing activations over the vocab); on one device, `embed`."""
+    table = rank_leaves(params["embed"], len(tokens))
     return [F.embedding(t, table[r]) for r, t in enumerate(tokens)]
 
 
 def unembed_weights(params) -> list:
     """One dict a rank holding the whole unembedding (``unembed``, or the
-    tied ``embed``), gathered."""
+    tied ``embed``), gathered; on one device, one dict."""
     key = "unembed" if "unembed" in params else "embed"
-    return [{key: w} for w in params[key].gathered()]
+    return [{key: w} for w in rank_leaves(params[key], 1)]

@@ -5,7 +5,7 @@ compressed to a ``d_c``-dim latent plus one shared rotary key, and queries
 go through their own ``d_cq`` latent.  Training (`mla_attention`) builds
 per-head keys and values from the latent and runs the flash attention with
 ``dqk = dh + r`` and ``dv = dh``; the decode (``serve/serve_step.py``,
-``_mla_decode_block``) scores queries against the latent cache directly
+``_mla_block``) scores queries against the latent cache directly
 (the *absorbed* form).
 """
 from __future__ import annotations

@@ -176,12 +176,18 @@ def moe_dense(params, x, *, topk: int, capacity_factor: float):
     return y, aux
 
 
-def moe_ep(params, xs: list, mesh, topk: int, capacity_factor: float):
+def moe_ep(params, xs: list, mesh, topk: int, capacity_factor: float,
+           sum_dtype=None):
     """Expert parallelism, one tensor a rank: ``xs[r]`` rank r's data shard's
     tokens (equal over ``model``) → (one output a rank, the aux on the
     mesh's first device).  The expert weights split their experts over
     ``model``; whatever FSDP axes their specs name (``data``, or ``data``
-    and ``pod`` with the reference's ``fsdp_over_pod``) are gathered."""
+    and ``pod`` with the reference's ``fsdp_over_pod``) are gathered.  The
+    ranks' outputs are summed over ``model`` in bfloat16, as the reference
+    sums them (halving a training step's all-reduce); with ``sum_dtype``
+    (the decode's float32: a few tokens) in that dtype, and the shared
+    experts' row-parallel products too (`layers.mlp_ranks`), each sum
+    rounded once as one device rounds it."""
     E = params["router"].shape[-1]
     M = mesh.shape["model"]
     if E % M:
@@ -205,15 +211,16 @@ def moe_ep(params, xs: list, mesh, topk: int, capacity_factor: float):
         p_local = {"w_gate": wg[r], "w_up": wu[r], "w_down": wd[r]}
         ys.append(_dispatch_compute_combine(p_local, x_flat, w, idx,
                                             m * E_local, E_local, C)
-                  .to(torch.bfloat16))
+                  .to(sum_dtype or torch.bfloat16))
         auxes.append(aux)
-    # the bf16 combine sum over "model" (per-token sums have <= topk + 1
-    # terms); the per-shard load-balance estimate averaged over the mesh
+    # the combine sum over "model" (per-token sums have <= topk + 1 terms);
+    # the per-shard load-balance estimate averaged over the mesh
     ys = sharding.psum(ys, mesh, "model")
     aux = sharding.pmean(auxes, mesh, ("model",) + batch_axes(mesh))[0]
     ys = [y.float().reshape(x.shape).to(x.dtype) for y, x in zip(ys, xs)]
     if "shared" in params:
-        shared = layers.mlp_ranks(params["shared"], xs, mesh)
+        shared = layers.mlp_ranks(params["shared"], xs, mesh,
+                                  sum_dtype=sum_dtype)
         ys = [y + s for y, s in zip(ys, shared)]
     return ys, aux
 
@@ -235,15 +242,17 @@ def _dense_ranks(params, xs: list, mesh, topk: int, capacity_factor: float):
     return ys, auxes[0]
 
 
-def moe_ranks(params, xs: list, mesh, *, topk: int, capacity_factor: float):
+def moe_ranks(params, xs: list, mesh, *, topk: int, capacity_factor: float,
+              sum_dtype=None):
     """`moe` on one tensor a rank (the mesh forward's activations); with no
-    ``mesh``, `moe_dense` of ``xs``' one tensor on one device."""
+    ``mesh``, `moe_dense` of ``xs``' one tensor on one device.
+    ``sum_dtype`` is `moe_ep`'s."""
     if mesh is None:
         y, aux = moe_dense(params, xs[0], topk=topk,
                            capacity_factor=capacity_factor)
         return [y], aux
     if _use_ep(params, mesh):
-        return moe_ep(params, xs, mesh, topk, capacity_factor)
+        return moe_ep(params, xs, mesh, topk, capacity_factor, sum_dtype)
     return _dense_ranks(params, xs, mesh, topk, capacity_factor)
 
 

@@ -163,28 +163,65 @@ def mamba2(params, x, *, state: int, conv: int, expand: int, head_dim: int,
 
 def mamba2_decode_step(params, x, cache: SSMCache, *, state: int, expand: int,
                        head_dim: int, norm_eps: float = 1e-6):
-    """Single-token decode: x (B, 1, d) → (out (B, 1, d), new SSMCache)."""
-    B, _, d = x.shape
+    """Single-token decode: x (B, 1, d) → (out (B, 1, d), new SSMCache):
+    `mamba2_decode_heads` over every head, then `mamba2_decode_out`."""
+    g, new = mamba2_decode_heads(params, x[:, 0], cache, 0, state=state,
+                                 expand=expand, head_dim=head_dim)
+    out = mamba2_decode_out(params, g, (g * g).sum(-1), 0, x.dtype, norm_eps)
+    return out[:, None, :], new
+
+
+def mamba2_decode_heads(params, h, cache: SSMCache, h0: int, *, state: int,
+                        expand: int, head_dim: int):
+    """The single-token step of the heads ``[h0, h0 + H_l)`` whose state
+    ``cache.state (B, H_l, N, P)`` holds (one rank's heads on a mesh, or
+    all of them): h (B, d) → ``(g (B, H_l P) fp32, new SSMCache)``, ``g``
+    the heads' gated output before its norm.  Each head's ``z``, ``x`` and
+    ``dt`` columns of ``w_in`` are the heads' own; the conv input (B and C
+    with it) and the conv tail are whole."""
+    B, d = h.shape
     d_in = expand * d
-    H = d_in // head_dim
-    proj = x[:, 0] @ params["w_in"]
-    z, xr, Bm, Cm, dt_raw = torch.split(
-        proj, [d_in, d_in, state, state, H], dim=-1)
-    xbc_raw = torch.cat([xr, Bm, Cm], dim=-1)               # (B, C) pre-conv
+    Hl = cache.state.shape[1]
+    lo, hi = h0 * head_dim, (h0 + Hl) * head_dim
+    w_in = params["w_in"]
+    if hi - lo == d_in:                  # every head: one product
+        z, xbc_raw, dt_raw = torch.split(h @ w_in, [d_in, d_in + 2 * state, Hl],
+                                         dim=-1)
+    else:
+        dt0 = 2 * d_in + 2 * state + h0
+        z = h @ w_in[:, lo:hi]
+        xbc_raw = h @ w_in[:, d_in:2 * d_in + 2 * state]
+        dt_raw = h @ w_in[:, dt0:dt0 + Hl]
     window = torch.cat([cache.conv_buf, xbc_raw[:, None, :]], dim=1)  # (B,K,C)
     conv = (window * params["conv_w"][None]).sum(dim=1) + params["conv_b"]
     xbc = F.silu(conv)
-    xr, Bm, Cm = torch.split(xbc, [d_in, state, state], dim=-1)
-    dt = softplus(dt_raw.float() + params["dt_bias"])       # (B, H)
-    A = -torch.exp(params["A_log"])
-    a = torch.exp(dt * A)                                   # (B, H)
-    xh = xr.reshape(B, H, head_dim).float()
+    xr = xbc[:, lo:hi]
+    Bm, Cm = xbc[:, d_in:d_in + state], xbc[:, d_in + state:]
+    dt = softplus(dt_raw.float() + params["dt_bias"][h0:h0 + Hl])  # (B, H_l)
+    A = -torch.exp(params["A_log"][h0:h0 + Hl])
+    a = torch.exp(dt * A)
+    xh = xr.reshape(B, Hl, head_dim).float()
     s = cache.state * a[:, :, None, None] + torch.einsum(
         "bn,bhp->bhnp", Bm.float(), xh * dt[..., None])
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), s)
-    y = y + params["D"][None, :, None] * xh
-    y = y.reshape(B, d_in).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"], norm_eps)
-    out = (y @ params["w_out"])[:, None, :]
+    y = y + params["D"][None, h0:h0 + Hl, None] * xh
+    g = (y.reshape(B, hi - lo).to(h.dtype) * F.silu(z)).float()
     new_tail = torch.cat([cache.conv_buf[:, 1:], xbc_raw[:, None]], dim=1)
-    return out, SSMCache(state=s, conv_buf=new_tail)
+    return g, SSMCache(state=s, conv_buf=new_tail)
+
+
+def mamba2_decode_out(params, g, sq, lo: int, dtype, norm_eps: float,
+                      sum_dtype=None):
+    """The gated RMSNorm of ``g (B, n)``, columns ``[lo, lo + n)`` of
+    ``d_in``, by ``sq (B,)``, the sum of squares over all of ``d_in`` (the
+    ranks' sum on a mesh), then ``w_out``'s rows ``[lo, lo + n)`` → (B, d)
+    in ``dtype``, or with ``sum_dtype`` the product in it, for a sum over
+    the ranks."""
+    d_in = params["norm_w"].shape[-1]
+    hi = lo + g.shape[-1]
+    var = sq * sq.new_full((), 1.0 / d_in)            # `core.util.mean_last`
+    y = g * torch.rsqrt(var + norm_eps)[:, None]
+    y = (y * (1.0 + params["norm_w"][lo:hi].float())).to(dtype)
+    if sum_dtype is None:
+        return y @ params["w_out"][lo:hi]
+    return y.to(sum_dtype) @ params["w_out"][lo:hi].to(sum_dtype)

@@ -198,6 +198,46 @@ def pmean(xs: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
     return [s / n for s in psum(xs, mesh, axis)] if n > 1 else list(xs)
 
 
+def merge_partials(parts: Sequence[tuple], mesh: Mesh, axis) -> list:
+    """Flash-decode partials merged over each rank's group along ``axis``
+    (the ranks that hold the other blocks of a sequence), in rank order:
+    ``parts[r]`` is ``(o, m, l)`` (``o`` normalised by ``l``; ``m``, ``l``
+    shaped as ``o`` without its last dim) or ``(o, lse)``.  Each rank gets
+    ``sum_q w_q o_q / sum_q w_q`` with ``w_q = l_q exp(m_q - max m)``, on its
+    device; a rank with nothing live (``m = -inf``, ``l = 0``, or ``lse =
+    -inf``) weighs 0, and a group with nothing live gives zeros."""
+    axes = _on_mesh(mesh, axis)
+    done: dict = {}
+    out = []
+    for r in range(mesh.size):
+        dev = mesh.devices[r]
+        group = mesh.group(r, axes) if axes else [r]
+        key = (_group_key(mesh, r, axes), dev)
+        if key not in done:
+            ms, ls, os_ = [], [], []
+            for q in group:
+                o, *ml = parts[q]
+                if len(ml) == 1:
+                    m, l = ml[0], (ml[0] > float("-inf")).to(o.dtype)
+                else:
+                    m, l = ml
+                os_.append(o.to(dev))
+                ms.append(m.to(dev))
+                ls.append(l.to(dev))
+            top = ms[0]
+            for m in ms[1:]:
+                top = torch.maximum(top, m)
+            top = torch.clamp(top, min=-1e30)
+            num = den = None
+            for o, m, l in zip(os_, ms, ls):
+                w = l * torch.exp(m - top)
+                num = o * w[..., None] if num is None else num + o * w[..., None]
+                den = w if den is None else den + w
+            done[key] = num / torch.clamp(den, min=1e-30)[..., None]
+        out.append(done[key])
+    return out
+
+
 def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis,
                dim: int) -> list:
     """Per-rank concatenations along ``dim`` of the blocks of each rank's

@@ -20,8 +20,18 @@ axis, as the reference's ``lax.scan`` reads them:
 With sketch attention on, per-block SRP signatures ``block_sigs (L_sig, B,
 S // SKETCH_BLOCK, SIG_BITS)`` bool ride along (DESIGN.md §5.4), ``L_sig``
 the leading size of ``k`` (or ``n_layers`` without one), as the reference
-allocates them; only the dense and vlm decode reads them.  There is no
-mesh: the cache lives on one device.
+allocates them; only the dense and vlm decode reads them.
+
+On a ``(data, model)`` mesh (``mesh=``, a `parallel.sharding.Mesh`) each
+leaf is a `parallel.sharding.Sharded` placed per `cache_specs`, the
+reference's placement: the batch over the data axes (``pod``, ``data``)
+when it divides them, the cache's sequence over ``model``, or over
+``(data, model)`` with the batch replicated when it does not (``long_500k``'s
+B = 1); Mamba2's ``ssm_state`` split by heads over ``model``; the block
+signatures split by batch and replicated over the sequence; every other
+leaf (the conv tails, the xLSTM states) replicated; the cross caches split
+over the sequence only where ``enc_frames`` divides those axes.  Each rank's
+block is a tensor of its own on its device, replicas included.
 
 ``length`` (the number of tokens decoded so far, shared by every request of
 the batch as the reference's 0-d ``cache["length"]`` is) is a Python int, so
@@ -29,17 +39,82 @@ that a decode step never reads a device scalar back to the host.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.util import resolve_device
+from ..parallel.sharding import (Mesh, Sharded, axis_size, canonical,
+                                 check_spec, shard_tensor)
 
 SIG_BITS = 64
 SKETCH_BLOCK = 512
 
 
+def cache_axes(cfg: ModelConfig, B: int, mesh: Optional[Mesh]):
+    """``(batch axes, sequence axes)`` of the cache for a batch of ``B``:
+    the data axes and ``("model",)`` when ``B`` divides the data axes, else
+    None (the batch replicated) and the sequence over ``(data, model)``;
+    ``(None, None)`` without a mesh."""
+    if mesh is None:
+        return None, None
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    dp_size = math.prod(mesh.shape[a] for a in dp) if dp else 1
+    if B % max(dp_size, 1) == 0 and B >= dp_size:
+        return dp, ("model",)
+    return None, tuple(a for a in ("data", "model") if a in mesh.axis_names)
+
+
+def _on(mesh: Mesh, axes):
+    """A spec entry of the axes (a name or a tuple) that ``mesh`` has."""
+    if axes is None:
+        return None
+    names = axes if isinstance(axes, tuple) else (axes,)
+    return canonical(tuple(a for a in names if a in mesh.axis_names))
+
+
+def leaf_spec(name: str, shape: tuple, cfg: ModelConfig, B: int,
+              mesh: Mesh) -> tuple:
+    """The spec of cache leaf ``name`` of ``shape`` (the reference's
+    ``cache_specs``, leaf by leaf)."""
+    ba, sa = cache_axes(cfg, B, mesh)
+
+    def div(axes, dim):
+        if axes is None:
+            return None
+        return axes if dim % axis_size(mesh, axes) == 0 else None
+
+    if name in ("k", "v", "dk", "dv", "xk", "xv"):
+        spec = (None, div(ba, shape[1]), div(sa, shape[2]), None, None)
+    elif name in ("c", "kr"):
+        spec = (None, ba, sa, None)
+    elif name == "ssm_state":
+        spec = (None, None, ba, "model", None, None)
+    elif name == "block_sigs":
+        spec = (None, ba, None, None)
+    else:
+        spec = (None,) * len(shape)
+    return tuple(_on(mesh, a) for a in spec)
+
+
+def cache_specs(cache: dict, cfg: ModelConfig, B: int, mesh: Mesh) -> dict:
+    """The spec of every leaf of ``cache`` (anything with a ``shape``; a
+    `Sharded` cache's global shapes): `leaf_spec`'s, ``()`` for ``length``
+    (the reference's replicated scalar)."""
+    return {name: () if name == "length"
+            else leaf_spec(name, tuple(x.shape), cfg, B, mesh)
+            for name, x in cache.items()}
+
+
 def init_cache(cfg: ModelConfig, B: int, s_max: int, sketch: bool = False,
-               device="cuda") -> dict:
+               device="cuda", mesh: Optional[Mesh] = None) -> dict:
+    """The zero cache (the xLSTM stabilisers at -inf) for ``B`` requests of
+    up to ``s_max`` tokens on ``device``, or with a ``mesh`` one block a
+    rank on each rank's device per `cache_specs`."""
+    if mesh is not None:
+        return _init_on_mesh(cfg, B, s_max, sketch, mesh)
     device = resolve_device(device)
     dt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
     f32 = dict(dtype=torch.float32, device=device)
@@ -97,6 +172,49 @@ def init_cache(cfg: ModelConfig, B: int, s_max: int, sketch: bool = False,
     return cache
 
 
+def _init_on_mesh(cfg: ModelConfig, B: int, s_max: int, sketch: bool,
+                  mesh: Mesh) -> dict:
+    """`init_cache` on ``mesh``: the leaves' shapes, dtypes and fills from
+    the one-device cache on the meta device, each rank's block made on its
+    device."""
+    like = init_cache(cfg, B, s_max, sketch, device="meta")
+    cache: dict = {"length": 0}
+    for name, x in like.items():
+        if name == "length":
+            continue
+        shape = tuple(x.shape)
+        spec = check_spec(shape, leaf_spec(name, shape, cfg, B, mesh), mesh)
+        fill = float("-inf") if name in ("mlstm_m", "slstm_m") else 0
+        block = tuple(n // axis_size(mesh, ax) for n, ax in zip(shape, spec))
+        cache[name] = Sharded([torch.full(block, fill, dtype=x.dtype,
+                                          device=dev) for dev in mesh.devices],
+                              spec, mesh, shape)
+    return cache
+
+
+def batch_dim(name: str) -> int:
+    """The batch dim of cache leaf ``name``: 2 of Mamba2's ``(G, E, B, ...)``
+    ``ssm_state`` and ``conv_buf``, else 1."""
+    return 2 if name in ("ssm_state", "conv_buf") else 1
+
+
+def shard_cache(cache: dict, cfg: ModelConfig, mesh: Mesh) -> dict:
+    """A one-device cache (of any device, the host's included, its leaves in
+    any order) placed on ``mesh`` per `cache_specs`: each rank's block a
+    tensor of its own."""
+    B = next(v.shape[batch_dim(k)] for k, v in cache.items() if k != "length")
+    specs = cache_specs(cache, cfg, B, mesh)
+    return {k: v if k == "length" else shard_tensor(v, specs[k], mesh)
+            for k, v in cache.items()}
+
+
 def cache_bytes(cache: dict) -> int:
-    return sum(x.numel() * x.element_size() for x in cache.values()
-               if isinstance(x, torch.Tensor))
+    """Bytes of the cache's tensors; of a `Sharded` leaf, one copy of each
+    distinct block."""
+    n = 0
+    for x in cache.values():
+        if isinstance(x, Sharded):
+            n += sum(s.numel() * s.element_size() for _, s in x.distinct())
+        elif isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+    return n

@@ -5,7 +5,11 @@ decode, the moe decode (GQA or absorbed-MLA attention, then the experts),
 the Mamba2 hybrid (groups of Mamba2 steps, each group followed by the
 shared attention block over that group's k/v), the xLSTM ``ssm`` decode
 ((mLSTM, sLSTM + FFN) pairs), the encoder-decoder decode with its
-``encode_cross_cache`` prefill.  The reference's ``REPRO_SPLIT_LOCAL_DECODE``
+``encode_cross_cache`` prefill, on one device or on a ``(data, model)``
+mesh.  Every block is written once, over a list of one activation a rank
+(`_Ranks`); one device is one rank, where the projections are plain
+products, nothing is summed or merged, and each layer's attention reads
+only the cache rows that attend.  The reference's ``REPRO_SPLIT_LOCAL_DECODE``
 branch (off by default, marked refuted there) is not ported.  Where the
 reference scans over the layer stack, the port loops over it in Python and
 updates the cache **in place**: the step writes the new token's k and v
@@ -18,9 +22,12 @@ signature into its 512-token block, and each *global* layer (window 0)
 attends only over the blocks that collide with the query's signature in at
 least 16 bits, plus the current block.  The port compacts those blocks into
 a live list on the device and runs the hand-written CUDA kernel
-`kernels.ops.sketch_decode_attn` over it (its plain version on the CPU).
-Local layers, and every layer with sketch off, use the plain
-`decode_attention`, as the reference computes them.
+`kernels.ops.sketch_decode_attn` over it (its plain version on the CPU);
+a rank holding one block of a sequence split over the mesh runs its
+partial entry over its live blocks, and the ranks' results are merged.
+Local layers, and every layer with sketch off, compute the plain
+attention (`decode_attention_partial`; `decode_attention` is the
+reference's whole-cache form).
 """
 from __future__ import annotations
 
@@ -35,8 +42,12 @@ from ..configs.base import ModelConfig
 from ..core import prng
 from ..core.util import fp32_reciprocal
 from ..kernels import ops
-from ..kernels.sketch_decode_attn import block_mask, live_blocks_from_sketch
+from ..kernels.sketch_decode_attn import (block_mask, compact_live,
+                                          live_blocks_from_sketch)
 from ..models import layers, mla, model as model_lib, moe, ssm, xlstm
+from ..parallel import sharding
+from ..parallel.sharding import Sharded
+from . import kv_cache
 from .kv_cache import SIG_BITS, SKETCH_BLOCK
 
 _SIG_SEED = 42
@@ -66,7 +77,9 @@ def rope_token(x: torch.Tensor, position: int, theta: float) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, length: int, *, window: int = 0,
                      softcap: float = 0.0, extra_mask=None):
-    """q (B, 1, H, dh); caches (B, S, Hkv, dh); attend over [0, length]."""
+    """q (B, 1, H, dh); caches (B, S, Hkv, dh); attend over [0, length],
+    reading the whole cache: the reference's form, the plain version the
+    tests hold `decode_attention_partial` (which the decode runs) against."""
     B, _, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -179,85 +192,429 @@ def _update_sigs(sigs, k_new, length: int):
     return sigs
 
 
-def _attn_decode_block(p, x, kc, vc, length: int, cfg: ModelConfig, *,
-                       window: int, sigs=None, live_out=None, rope_theta=None):
-    """Dense-attention decode sub-block; writes the token's k and v (and,
-    with ``sigs``, its signature) in place and returns the new x.  A global
-    layer with ``sigs`` runs the kernel over its live blocks and stores
-    ``(block_ids, n_live)`` in ``live_out``.  ``rope_theta`` overrides the
-    config's (the encoder-decoder's self-attention passes 0: no RoPE)."""
+
+# ---------------------------------------------------------------------------
+# the ranks of one step: a (data, model) mesh's, or one device as one rank
+# ---------------------------------------------------------------------------
+
+# The dtype the decode sums the ranks' row-parallel products in (the MLP's
+# ``w_down``, the experts' combine, Mamba2's ``w_out``): float32, the sum
+# rounded once, as one device rounds its product.  The reference's
+# ``moe_ep`` sums its combine in bfloat16; PERF.md §6 records the departure,
+# why, and its cost against bfloat16 sums.
+SUM_DTYPE = torch.float32
+
+
+def _shards(leaf) -> list:
+    """A leaf's blocks, one a rank: a `Sharded` leaf's, or one device's
+    tensor."""
+    return leaf.shards if isinstance(leaf, Sharded) else [leaf]
+
+
+def _split(leaf, dim: int):
+    """The mesh axes that cut ``leaf``'s dim ``dim`` into more than one
+    block, or None."""
+    if not isinstance(leaf, Sharded):
+        return None
+    ax = leaf.spec[dim]
+    return ax if sharding.axis_size(leaf.mesh, ax) > 1 else None
+
+
+def _block(leaf, r: int, dim: int) -> tuple:
+    """Rank ``r``'s ``(start, size)`` of ``leaf``'s dim ``dim``."""
+    size = _shards(leaf)[r].shape[dim]
+    if not isinstance(leaf, Sharded):
+        return 0, size
+    return sharding.axis_index(leaf.mesh, r, leaf.spec[dim]) * size, size
+
+
+def _col(w, hs: list, mesh) -> list:
+    """``h @ w`` on every rank, whole: column-parallel over ``model`` (each
+    rank its block of columns, then the all-gather of the outputs) where
+    ``w`` splits its columns over ``model`` alone, else ``w`` gathered (on
+    one device, ``h @ w``)."""
+    if isinstance(w, Sharded) and layers._model_split(w, -1):
+        blocks = w.gathered(keep=("model",))
+        ys = [h @ blocks[r] for r, h in enumerate(hs)]
+        return sharding.all_gather(ys, mesh, "model", dim=ys[0].dim() - 1)
+    full = layers.rank_leaves(w, len(hs))
+    return [h @ full[r] for r, h in enumerate(hs)]
+
+
+def _row(w, xs: list, mesh) -> list:
+    """``x @ w.float()`` on every rank (``x`` fp32 and whole): row-parallel
+    over ``model`` (each rank its block of rows, then one sum over
+    ``model``) where ``w`` splits its rows over ``model`` alone, else ``w``
+    gathered (on one device, ``x @ w.float()``)."""
+    if isinstance(w, Sharded) and layers._model_split(w, -2):
+        blocks = w.gathered(keep=("model",))
+        outs = []
+        for r, x in enumerate(xs):
+            n = blocks[r].shape[0]
+            lo = sharding.axis_index(mesh, r, "model") * n
+            outs.append(x[..., lo:lo + n] @ blocks[r].float())
+        return sharding.psum(outs, mesh, "model")
+    full = layers.rank_leaves(w, len(xs))
+    return [x @ full[r].float() for r, x in enumerate(xs)]
+
+
+class _Ranks:
+    """One decode step's ranks (a mesh's, or one device as one rank): each
+    rank's rows of the batch (the data axes of `kv_cache.cache_axes`, or
+    the whole batch where it is replicated, and always for the xLSTM's
+    replicated states), the merge of a sequence's partials, the embedding
+    on every rank and the logits of each distinct batch block on the first
+    rank's device."""
+
+    def __init__(self, cfg: ModelConfig, mesh, B: int):
+        self.cfg, self.mesh = cfg, mesh
+        self.n = 1 if mesh is None else mesh.size
+        ba, _ = kv_cache.cache_axes(cfg, B, mesh)
+        self.batch_axes = () if ba is None or cfg.family == "ssm" else ba
+        if mesh is None:
+            self.rows = [(0, B)]
+        else:
+            spec = (sharding.canonical(self.batch_axes),)
+            self.rows = [sharding._blocks((B,), spec, mesh, r)[0]
+                         for r in range(mesh.size)]
+
+    def firsts(self) -> list:
+        """The first rank of each distinct batch block, in batch order."""
+        seen, out = set(), []
+        for r, rows in enumerate(self.rows):
+            if rows not in seen:
+                seen.add(rows)
+                out.append(r)
+        return sorted(out, key=lambda r: self.rows[r])
+
+    def embed(self, tree, tokens) -> list:
+        devs = [tokens.device] if self.mesh is None else self.mesh.devices
+        toks = [tokens[b0:b0 + n].to(d) for (b0, n), d in zip(self.rows, devs)]
+        xs = layers.embed_ranks(tree["embedding"], toks)
+        if self.cfg.scale_embeddings:
+            # the reference rounds sqrt(d_model) to the activation dtype first
+            xs = [x * _embed_scale(self.cfg, x.dtype) for x in xs]
+        return xs
+
+    def logits(self, tree, xs: list) -> torch.Tensor:
+        """The final norm and unembedding on one rank of each batch block,
+        the blocks assembled on the first rank's device."""
+        cfg, dev = self.cfg, xs[0].device
+        ln_f = layers.rank_leaves(tree["ln_f"], self.n)
+        w = layers.unembed_weights(tree["embedding"])
+        out = []
+        for r in self.firsts():
+            x = layers.rms_norm(xs[r], ln_f[r], cfg.norm_eps)
+            out.append(layers.unembed(w[r], x, cfg.final_softcap).to(dev))
+        return torch.cat(out) if len(out) > 1 else out[0]
+
+    def global_list(self, per_rank: list):
+        """A layer's live lists ``(block_ids, n_live)`` of every rank → the
+        whole batch's on the first rank's device."""
+        dev = per_rank[0][0].device
+        firsts = self.firsts()
+        ids = [per_rank[r][0].to(dev) for r in firsts]
+        n = [per_rank[r][1].to(dev) for r in firsts]
+        return (torch.cat(ids), torch.cat(n)) if len(firsts) > 1 \
+            else (ids[0], n[0])
+
+    def merge(self, parts: list, leaf, dim: int) -> list:
+        """Partials over ``leaf``'s dim ``dim`` merged across the ranks it
+        splits over; where it is whole, each rank's own output."""
+        axes = _split(leaf, dim)
+        if axes is None:
+            return [p[0] for p in parts]
+        return sharding.merge_partials(parts, self.mesh, axes)
+
+
+def _empty_partial(o_shape, device):
+    """A rank's partial with nothing live: zeros, ``m = -inf``, ``l = 0``."""
+    o = torch.zeros(o_shape, dtype=torch.float32, device=device)
+    m = torch.full(o_shape[:-1], float("-inf"), device=device)
+    return o, m, torch.zeros(o_shape[:-1], device=device)
+
+
+def _live_range(s0: int, size: int, length: int, window: int) -> tuple:
+    """The positions ``[lo, hi)`` of a block starting at ``s0`` that attend:
+    at or below ``length``, and within ``window`` of it (``window`` > 0)."""
+    lo = max(s0, length - window + 1) if window > 0 else s0
+    return lo, min(s0 + size, length + 1)
+
+
+def decode_attention_partial(q, k_cache, v_cache, length: int, s0: int, *,
+                             window: int = 0, softcap: float = 0.0):
+    """`decode_attention` over the cache block whose first row is global
+    position ``s0``, un-merged: q (B, 1, H, dh); caches (B, S_block, Hkv,
+    dh) → ``(o (B, Hkv, G, dh), m, l (B, Hkv, G))`` fp32, ``o`` normalised.
+    Only the rows in `_live_range` are read; with none, the empty
+    partial."""
+    B, _, H, dh = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    lo, hi = _live_range(s0, k_cache.shape[1], length, window)
+    if hi <= lo:
+        return _empty_partial((B, Hkv, G, dh), q.device)
+    k = k_cache[:, lo - s0:hi - s0].float()
+    v = v_cache[:, lo - s0:hi - s0].float()
+    qs = q.reshape(B, Hkv, G, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qs, k) * dh ** -0.5
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s * fp32_reciprocal(softcap))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    p = p / l[..., None]
+    return torch.einsum("bhgs,bshd->bhgd", p, v), m, l
+
+
+def _write_token(leaf, new: list, length: int, dim: int = 1) -> None:
+    """Write each rank's new row into its block of a layer's cache ``leaf``
+    (``(B, S, ...)``) where the block holds position ``length``."""
+    for r, t in enumerate(_shards(leaf)):
+        s0, size = _block(leaf, r, dim)
+        if s0 <= length < s0 + size:
+            t[:, length - s0] = new[r].to(t.dtype)
+
+
+def _sketch_partials(q: list, kc, vc, sigs, length: int, cfg: ModelConfig,
+                     live_out) -> list:
+    """A global layer's sketch attention: the live list decided once from
+    the block signatures (on each device, a batch block's replicas equal),
+    then `ops.sketch_decode_attn` over it where a rank holds the whole
+    sequence, else each rank's ids inside its block of the sequence
+    rebased to it and `ops.sketch_decode_attn_partial` on every rank whose
+    block starts at or below ``length``."""
+    dh, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    G = cfg.n_heads // Hkv
+    nb = sigs.shape[1]
+    split = _split(kc, 1) is not None
+    decided: dict = {}
+    lists, parts = [], []
+    for r, q_r in enumerate(q):
+        B, dev = q_r.shape[0], q_r.device
+        key = (_block(sigs, r, 0)[0], dev)
+        if key not in decided:
+            ids, n_live = _live_blocks(q_r, _shards(sigs)[r], length)
+            decided[key] = (ids, n_live,
+                            block_mask(ids, n_live, nb) if split else None)
+        ids, n_live, live = decided[key]
+        lists.append((ids, n_live))
+        qk = q_r.reshape(B, Hkv, G, dh).contiguous()
+        kc_r, vc_r = _shards(kc)[r], _shards(vc)[r]
+        if not split:
+            parts.append((ops.sketch_decode_attn(
+                qk, kc_r, vc_r, ids, n_live, length + 1, SKETCH_BLOCK,
+                cfg.attn_softcap),))
+            continue
+        s0, size = _block(kc, r, 1)
+        if s0 > length:         # nothing of this block is written yet
+            parts.append((torch.zeros((B, Hkv, G, dh), device=dev),
+                          torch.full((B, Hkv, G), float("-inf"), device=dev)))
+            continue
+        b0 = s0 // SKETCH_BLOCK
+        ids_r, n_r = compact_live(live[:, b0:b0 + size // SKETCH_BLOCK])
+        parts.append(ops.sketch_decode_attn_partial(
+            qk, kc_r, vc_r, ids_r, n_r, min(length + 1 - s0, size),
+            SKETCH_BLOCK, cfg.attn_softcap))
+    if live_out is not None:
+        live_out.append(lists)
+    return parts
+
+
+def _attn_block(p, xs: list, kc, vc, length: int, cfg: ModelConfig,
+                ms: _Ranks, *, window: int, sigs=None, live_out=None,
+                rope_theta=None) -> list:
+    """Dense-attention decode sub-block: the projections tensor-parallel
+    (`_col`, `_row`), the token's k and v (and, with ``sigs``, its
+    signature bits) written in place by the rank that owns position
+    ``length``, each rank's partial over its block of the sequence (global
+    positions) merged across the sequence's ranks before ``wo``.  A global
+    layer with ``sigs`` runs the kernel over its live blocks and appends
+    each rank's ``(block_ids, n_live)`` to ``live_out``.  ``rope_theta``
+    overrides the config's (the encoder-decoder's self-attention passes 0:
+    no RoPE)."""
+    mesh, n = ms.mesh, ms.n
     dh = cfg.resolved_head_dim
-    B = x.shape[0]
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["attn"]["wq"]).reshape(B, 1, cfg.n_heads, dh)
-    k = (h @ p["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads, dh)
-    v = (h @ p["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads, dh)
+    ln = {k: layers.rank_leaves(p[k], n) for k in ("ln1", "ln1_post")
+          if k in p}
+    hs = [layers.rms_norm(x, ln["ln1"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    a = p["attn"]
+    heads = lambda w, h: [t.reshape(-1, 1, h, dh) for t in _col(w, hs, mesh)]
+    q = heads(a["wq"], cfg.n_heads)
+    k = heads(a["wk"], cfg.n_kv_heads)
+    v = heads(a["wv"], cfg.n_kv_heads)
     if cfg.qk_norm:
-        q = layers.rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps)
-        k = layers.rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps)
+        qn = layers.rank_leaves(a["q_norm"], n)
+        kn = layers.rank_leaves(a["k_norm"], n)
+        q = [layers.rms_norm(t, qn[r], cfg.norm_eps) for r, t in enumerate(q)]
+        k = [layers.rms_norm(t, kn[r], cfg.norm_eps) for r, t in enumerate(k)]
     theta = cfg.rope_theta if rope_theta is None else rope_theta
-    q = rope_token(q, length, theta)
-    k = rope_token(k, length, theta)
-    kc[:, length] = k[:, 0].to(kc.dtype)
-    vc[:, length] = v[:, 0].to(vc.dtype)
+    q = [rope_token(t, length, theta) for t in q]
+    k = [rope_token(t, length, theta) for t in k]
+    _write_token(kc, [t[:, 0] for t in k], length)
+    _write_token(vc, [t[:, 0] for t in v], length)
     if sigs is not None:
-        _update_sigs(sigs, k, length)
+        for r, t in enumerate(k):
+            _update_sigs(_shards(sigs)[r], t, length)
     if sigs is not None and window <= 0:
-        block_ids, n_live = _live_blocks(q, sigs, length)
-        G = cfg.n_heads // cfg.n_kv_heads
-        a = ops.sketch_decode_attn(
-            q.reshape(B, cfg.n_kv_heads, G, dh).contiguous(), kc, vc,
-            block_ids, n_live, length + 1, SKETCH_BLOCK, cfg.attn_softcap)
-        a = a.reshape(B, 1, cfg.n_heads * dh)
-        if live_out is not None:
-            live_out.append((block_ids, n_live))
+        parts = _sketch_partials(q, kc, vc, sigs, length, cfg, live_out)
     else:
-        a = decode_attention(q, kc, vc, length, window=window,
-                             softcap=cfg.attn_softcap)
-    a = a @ p["attn"]["wo"].float()      # fp32 attention output, as in JAX
-    if "ln1_post" in p:
-        a = layers.rms_norm(a, p["ln1_post"], cfg.norm_eps)
-    return x + a.to(x.dtype)
+        parts = [decode_attention_partial(
+            q[r], _shards(kc)[r], _shards(vc)[r], length, _block(kc, r, 1)[0],
+            window=window, softcap=cfg.attn_softcap) for r in range(n)]
+    o = [t.reshape(t.shape[0], 1, cfg.n_heads * dh)
+         for t in ms.merge(parts, kc, 1)]
+    out = _row(a["wo"], o, mesh)      # fp32 attention output, as in JAX
+    if "ln1_post" in ln:
+        out = [layers.rms_norm(t, ln["ln1_post"][r], cfg.norm_eps)
+               for r, t in enumerate(out)]
+    return [x + t.to(x.dtype) for x, t in zip(xs, out)]
 
 
-def _mlp_block(p, x, cfg: ModelConfig):
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+def _mlp_block(p, xs: list, cfg: ModelConfig, ms: _Ranks) -> list:
+    ln = {k: layers.rank_leaves(p[k], ms.n) for k in ("ln2", "ln2_post")
+          if k in p}
+    hs = [layers.rms_norm(x, ln["ln2"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
     act = layers.gelu_tanh if cfg.mlp_act == "gelu" else F.silu
-    m = layers.mlp(p["mlp"], h, act=act)
-    if "ln2_post" in p:
-        m = layers.rms_norm(m, p["ln2_post"], cfg.norm_eps)
-    return x + m
+    m = layers.mlp_ranks(p["mlp"], hs, ms.mesh, act=act, sum_dtype=SUM_DTYPE)
+    if "ln2_post" in ln:
+        m = [layers.rms_norm(t, ln["ln2_post"][r], cfg.norm_eps)
+             for r, t in enumerate(m)]
+    return [x + t for x, t in zip(xs, m)]
 
 
-def _mla_decode_block(p, x, cc, krc, length: int, cfg: ModelConfig):
-    """Absorbed MLA decode: scores against the latent cache directly,
-    scaled by ``1 / sqrt(dh + r)``.  Writes the token's latent and rotary
-    key in place and returns the new x."""
-    B = x.shape[0]
-    H, dh, r = cfg.n_heads, cfg.resolved_head_dim, cfg.mla_rope_dim
-    d_c = cfg.mla_d_c
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    c_new, kr_new = mla.mla_latent(p["attn"], h, length, rope_dim=r,
+def _moe_block(p, hs: list, cfg: ModelConfig, ms: _Ranks, cf: float):
+    """The MoE layer on every rank: `moe.moe_ranks` (one device's
+    `moe.moe_dense`, or expert parallelism where the ``model`` axis divides
+    the experts, as the reference's ``moe_ep``), or, with the batch
+    replicated and no expert split, `moe.moe_dense` of the whole batch on
+    every rank."""
+    if ms.mesh is not None and not ms.batch_axes \
+            and not moe._use_ep(p, ms.mesh):
+        tree = layers.gathered_tree(p)
+        return [moe.moe_dense(tree[r], h, topk=cfg.moe_topk,
+                              capacity_factor=cf)[0] for r, h in enumerate(hs)]
+    return moe.moe_ranks(p, hs, ms.mesh, topk=cfg.moe_topk,
+                         capacity_factor=cf, sum_dtype=SUM_DTYPE)[0]
+
+
+def _mla_token(pa, x, ln1, length: int, cfg: ModelConfig):
+    """The token's latent and rotary key (the cache's new row) and its
+    queries: ``(c_new (B, d_c), kr_new (B, r), q_nope, q_rope)``."""
+    h = layers.rms_norm(x, ln1, cfg.norm_eps)
+    c_new, kr_new = mla.mla_latent(pa, h, length, rope_dim=cfg.mla_rope_dim,
                                    rope_theta=cfg.rope_theta,
                                    norm_eps=cfg.norm_eps)
-    cc[:, length] = c_new[:, 0].to(cc.dtype)
-    krc[:, length] = kr_new[:, 0].to(krc.dtype)
     q_nope, q_rope = mla.mla_queries(
-        p["attn"], h, length, n_heads=H, head_dim=dh, rope_dim=r,
-        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
-    w_uk = p["attn"]["w_uk"].reshape(d_c, H, dh)
+        pa, h, length, n_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+        rope_dim=cfg.mla_rope_dim, rope_theta=cfg.rope_theta,
+        norm_eps=cfg.norm_eps)
+    return c_new[:, 0], kr_new[:, 0], q_nope, q_rope
+
+
+def _mla_partial(pa, q_nope, q_rope, c, kr, cfg: ModelConfig):
+    """The absorbed scores of the queries against latent rows ``c`` (B, n,
+    d_c) and rotary keys ``kr`` (B, n, r), every row attending, scaled by
+    ``1 / sqrt(dh + r)`` → ``(o_lat (B, H, d_c), m, l (B, H))`` fp32, the
+    latent output normalised."""
+    H, dh, d_c = cfg.n_heads, cfg.resolved_head_dim, cfg.mla_d_c
+    c = c.float()
+    w_uk = pa["w_uk"].reshape(d_c, H, dh)
     q_abs = torch.einsum("bqhd,chd->bhc", q_nope.float(), w_uk.float())
-    s = torch.einsum("bhc,bsc->bhs", q_abs, cc.float()) \
-        + torch.einsum("bqhr,bsr->bhs", q_rope.float(), krc.float())
-    s = s * fp32_reciprocal(math.sqrt(dh + r))
-    mask = torch.arange(cc.shape[1], device=x.device) <= length
-    s = torch.where(mask[None, None, :], s, float("-inf"))
-    w = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhs,bsc->bhc", w, cc.float())          # (B, H, d_c)
-    w_uv = p["attn"]["w_uv"].reshape(d_c, H, dh)
+    s = torch.einsum("bhc,bsc->bhs", q_abs, c) \
+        + torch.einsum("bqhr,bsr->bhs", q_rope.float(), kr.float())
+    s = s * fp32_reciprocal(math.sqrt(dh + cfg.mla_rope_dim))
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    return torch.einsum("bhs,bsc->bhc", e / l[..., None], c), m, l
+
+
+def _mla_out(pa, o_lat, cfg: ModelConfig):
+    """``w_uv`` of the latent output: (B, H, d_c) → (B, 1, H dh) fp32."""
+    H, dh, d_c = cfg.n_heads, cfg.resolved_head_dim, cfg.mla_d_c
+    w_uv = pa["w_uv"].reshape(d_c, H, dh)
     o = torch.einsum("bhc,chd->bhd", o_lat, w_uv.float())
-    o = o.reshape(B, 1, H * dh) @ p["attn"]["w_o"].float()
-    return x + o.to(x.dtype)
+    return o.reshape(o.shape[0], 1, H * dh)
+
+
+
+def _mla_block(p, xs: list, cc, krc, length: int, cfg: ModelConfig,
+               ms: _Ranks) -> list:
+    """Absorbed MLA decode: the latent and queries on every rank (weights
+    gathered), the token's latent and rotary key written in place by the
+    owner of position ``length``, each rank's absorbed scores against its
+    block's written rows of ``c`` / ``kr`` merged across the sequence's
+    ranks, then ``w_uv`` and ``w_o`` (row-parallel)."""
+    n = ms.n
+    ln1 = layers.rank_leaves(p["ln1"], n)
+    w = {k: layers.rank_leaves(v, n) for k, v in p["attn"].items()
+         if k != "w_o"}
+    pas = [{k: v[r] for k, v in w.items()} for r in range(n)]
+    tok = [_mla_token(pas[r], x, ln1[r], length, cfg)
+           for r, x in enumerate(xs)]
+    _write_token(cc, [t[0] for t in tok], length)
+    _write_token(krc, [t[1] for t in tok], length)
+    parts = []
+    for r, (_, _, q_nope, q_rope) in enumerate(tok):
+        s0, size = _block(cc, r, 1)
+        lo, hi = _live_range(s0, size, length, 0)
+        if hi <= lo:
+            parts.append(_empty_partial(
+                (q_nope.shape[0], cfg.n_heads, cfg.mla_d_c), q_nope.device))
+            continue
+        parts.append(_mla_partial(pas[r], q_nope, q_rope,
+                                  _shards(cc)[r][:, lo - s0:hi - s0],
+                                  _shards(krc)[r][:, lo - s0:hi - s0], cfg))
+    o_lat = ms.merge(parts, cc, 1)
+    o = [_mla_out(pas[r], t, cfg) for r, t in enumerate(o_lat)]
+    out = _row(p["attn"]["w_o"], o, ms.mesh)
+    return [x + t.to(x.dtype) for x, t in zip(xs, out)]
+
+
+def _mamba2_block(p, xs: list, st, cb, cfg: ModelConfig, ms: _Ranks) -> list:
+    """Mamba2's decode step (`ssm.mamba2_decode_heads`, then
+    `ssm.mamba2_decode_out`), split by heads over ``model`` as ``ssm_state``
+    is: each rank projects ``z``, ``x`` and ``dt`` for its heads and the
+    conv input whole (the conv tail stays whole and replicated), updates
+    its heads' state, and normalises its heads' gated output by the ranks'
+    summed squares over ``d_in``; ``w_out``'s row blocks are summed over
+    ``model``.  The new conv tails of the batch blocks are gathered into
+    every replica."""
+    mesh, n = ms.mesh, ms.n
+    kw = dict(state=cfg.ssm_state, expand=cfg.ssm_expand,
+              head_dim=cfg.ssm_head_dim)
+    ln = layers.rank_leaves(p["ln"], n)
+    w = layers.gathered_tree(p["mixer"])
+    heads = _split(st, 1)
+    gs, cols, tails = [], [], []
+    for r, x in enumerate(xs):
+        st_r = _shards(st)[r]
+        h0 = _block(st, r, 1)[0]
+        b0, nb = ms.rows[r]
+        h = layers.rms_norm(x, ln[r], cfg.norm_eps)[:, 0]
+        g, new = ssm.mamba2_decode_heads(
+            w[r], h, ssm.SSMCache(st_r, _shards(cb)[r][b0:b0 + nb]), h0, **kw)
+        st_r.copy_(new.state)
+        gs.append(g)
+        cols.append(h0 * cfg.ssm_head_dim)
+        tails.append(new.conv_buf)
+    sq = [(g * g).sum(-1) for g in gs]
+    if heads:
+        sq = sharding.psum(sq, mesh, heads)
+    outs = [ssm.mamba2_decode_out(w[r], g, sq[r], cols[r], xs[r].dtype,
+                                  cfg.norm_eps, SUM_DTYPE if heads else None)
+            for r, g in enumerate(gs)]
+    if heads:
+        outs = [o.to(x.dtype) for o, x in
+                zip(sharding.psum(outs, mesh, heads), xs)]
+    if ms.batch_axes:
+        tails = sharding.all_gather(tails, mesh, ms.batch_axes, dim=0)
+    for r, t in enumerate(tails):
+        _shards(cb)[r].copy_(t)
+    return [x + o[:, None] for x, o in zip(xs, outs)]
 
 
 def _layer_views(cfg: ModelConfig, tree) -> dict:
@@ -292,94 +649,110 @@ def _seq_capacity(cache: dict):
     return None
 
 
-def _decode_dense(cfg, views, tree, cache, x, length, sigs, live):
+def _decode_dense(cfg, views, tree, cache, xs, length, sigs, live, ms):
     for i, (p, window) in enumerate(zip(views["blocks"],
                                         model_lib.window_pattern(cfg))):
-        x = _attn_decode_block(
-            p, x, cache["k"][i], cache["v"][i], length, cfg, window=window,
-            sigs=None if sigs is None else sigs[i], live_out=live)
-        x = _mlp_block(p, x, cfg)
-    return x
+        xs = _attn_block(p, xs, cache["k"][i], cache["v"][i], length, cfg, ms,
+                         window=window, sigs=None if sigs is None else sigs[i],
+                         live_out=live)
+        xs = _mlp_block(p, xs, cfg, ms)
+    return xs
 
 
-def _decode_moe(cfg, views, tree, cache, x, length, sigs, live):
+def _decode_moe(cfg, views, tree, cache, xs, length, sigs, live, ms):
     for i, p in enumerate(views["dense"]):
-        x = _attn_decode_block(p, x, cache["dk"][i], cache["dv"][i], length,
-                               cfg, window=0)
-        x = _mlp_block(p, x, cfg)
+        xs = _attn_block(p, xs, cache["dk"][i], cache["dv"][i], length, cfg,
+                         ms, window=0)
+        xs = _mlp_block(p, xs, cfg, ms)
     cf = max(cfg.capacity_factor, 8.0)  # tiny T at decode
     for i, p in enumerate(views["moe"]):
         if cfg.use_mla:
-            x = _mla_decode_block(p, x, cache["c"][i], cache["kr"][i], length,
-                                  cfg)
+            xs = _mla_block(p, xs, cache["c"][i], cache["kr"][i], length, cfg,
+                            ms)
         else:
-            x = _attn_decode_block(p, x, cache["k"][i], cache["v"][i], length,
-                                   cfg, window=0)
-        h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        m, _ = moe.moe(p["moe"], h, topk=cfg.moe_topk, capacity_factor=cf)
-        x = x + m
-    return x
+            xs = _attn_block(p, xs, cache["k"][i], cache["v"][i], length, cfg,
+                             ms, window=0)
+        ln2 = layers.rank_leaves(p["ln2"], ms.n)
+        hs = [layers.rms_norm(x, ln2[r], cfg.norm_eps)
+              for r, x in enumerate(xs)]
+        xs = [x + m for x, m in zip(xs, _moe_block(p["moe"], hs, cfg, ms, cf))]
+    return xs
 
 
-def _decode_hybrid(cfg, views, tree, cache, x, length, sigs, live):
+def _decode_hybrid(cfg, views, tree, cache, xs, length, sigs, live, ms):
     st, cb = cache["ssm_state"], cache["conv_buf"]
     for g, group in enumerate(views["mamba"]):
         for e, p in enumerate(group):
-            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-            o, nc = ssm.mamba2_decode_step(
-                p["mixer"], h, ssm.SSMCache(st[g, e], cb[g, e]),
-                state=cfg.ssm_state, expand=cfg.ssm_expand,
-                head_dim=cfg.ssm_head_dim, norm_eps=cfg.norm_eps)
-            st[g, e].copy_(nc.state)
-            cb[g, e].copy_(nc.conv_buf)
-            x = x + o
+            xs = _mamba2_block(p, xs, st[g][e], cb[g][e], cfg, ms)
         p = tree["shared_attn"]
-        x = _attn_decode_block(p, x, cache["k"][g], cache["v"][g], length, cfg,
-                               window=0)
-        x = _mlp_block(p, x, cfg)
-    return x
+        xs = _attn_block(p, xs, cache["k"][g], cache["v"][g], length, cfg, ms,
+                         window=0)
+        xs = _mlp_block(p, xs, cfg, ms)
+    return xs
 
 
-def _decode_ssm(cfg, views, tree, cache, x, length, sigs, live):
-    x1 = x[:, 0]      # (B, d); the cells consume (B, 1, d) sequences
-    for i, (pm, psl) in enumerate(views["pairs"]):
-        h = layers.rms_norm(x1, pm["ln"], cfg.norm_eps)[:, None]
-        o, st = xlstm.mlstm(pm["mixer"], h, n_heads=cfg.n_heads,
-                            norm_eps=cfg.norm_eps, state=xlstm.MLSTMState(
-                                cache["mlstm_C"][i], cache["mlstm_n"][i],
-                                cache["mlstm_m"][i]))
-        x1 = x1 + o[:, 0]
-        h = layers.rms_norm(x1, psl["ln"], cfg.norm_eps)[:, None]
-        o2, st2 = xlstm.slstm(psl["mixer"], h, n_heads=cfg.n_heads,
-                              norm_eps=cfg.norm_eps, state=xlstm.SLSTMState(
-                                  *(cache[f"slstm_{n}"][i] for n in "cnhm")))
-        x1 = x1 + o2[:, 0]
-        hf = layers.rms_norm(x1, psl["ln_ffn"], cfg.norm_eps)
-        x1 = x1 + layers.mlp(psl["ffn"], hf)
-        for name, value in (("mlstm_C", st.C), ("mlstm_n", st.n),
-                            ("mlstm_m", st.m), *((f"slstm_{n}", v) for n, v
-                                                 in zip("cnhm", st2))):
-            cache[name][i].copy_(value)
-    return x1[:, None]
+def _decode_ssm(cfg, views, tree, cache, xs, length, sigs, live, ms):
+    """The xLSTM pairs on every rank over the whole batch, each rank's
+    weights gathered and its replica of every state updated in place: the
+    replicas stay equal."""
+    names = ("mlstm_C", "mlstm_n", "mlstm_m", *(f"slstm_{n}" for n in "cnhm"))
+    pairs = [(layers.gathered_tree(pm), layers.gathered_tree(psl))
+             for pm, psl in views["pairs"]]
+    out = []
+    for r, x in enumerate(xs):
+        st = {k: _shards(cache[k])[r] for k in names}
+        x1 = x[:, 0]      # (B, d); the cells consume (B, 1, d) sequences
+        for i, (wm, ws) in enumerate(pairs):
+            pm, psl = wm[r], ws[r]
+            h = layers.rms_norm(x1, pm["ln"], cfg.norm_eps)[:, None]
+            o, s1 = xlstm.mlstm(pm["mixer"], h, n_heads=cfg.n_heads,
+                                norm_eps=cfg.norm_eps, state=xlstm.MLSTMState(
+                                    st["mlstm_C"][i], st["mlstm_n"][i],
+                                    st["mlstm_m"][i]))
+            x1 = x1 + o[:, 0]
+            h = layers.rms_norm(x1, psl["ln"], cfg.norm_eps)[:, None]
+            o2, s2 = xlstm.slstm(psl["mixer"], h, n_heads=cfg.n_heads,
+                                 norm_eps=cfg.norm_eps, state=xlstm.SLSTMState(
+                                     *(st[f"slstm_{n}"][i] for n in "cnhm")))
+            x1 = x1 + o2[:, 0]
+            hf = layers.rms_norm(x1, psl["ln_ffn"], cfg.norm_eps)
+            x1 = x1 + layers.mlp(psl["ffn"], hf)
+            for name, value in zip(names, (*s1, *s2)):
+                st[name][i].copy_(value)
+        out.append(x1[:, None])
+    return out
 
 
-def _decode_encdec(cfg, views, tree, cache, x, length, sigs, live):
+def _decode_encdec(cfg, views, tree, cache, xs, length, sigs, live, ms):
     # absolute sinusoidal position of the current token
-    tab = model_lib._sinusoid(cache["k"].shape[2], cfg.d_model, x.dtype,
-                              x.device)
-    x = x + tab[:, length:length + 1]
-    B, dh = x.shape[0], cfg.resolved_head_dim
+    S = cache["k"].shape[2]
+    tab = {}
+    for x in xs:
+        if x.device not in tab:
+            tab[x.device] = model_lib._sinusoid(S, cfg.d_model, x.dtype,
+                                                x.device)
+    xs = [x + tab[x.device][:, length:length + 1] for x in xs]
+    dh = cfg.resolved_head_dim
     Te = cache["xk"].shape[2]
     for i, p in enumerate(views["dec"]):
-        x = _attn_decode_block(p, x, cache["k"][i], cache["v"][i], length, cfg,
-                               window=0, rope_theta=0.0)
+        xs = _attn_block(p, xs, cache["k"][i], cache["v"][i], length, cfg, ms,
+                         window=0, rope_theta=0.0)
         # cross attention over the precomputed encoder cache
-        h = layers.rms_norm(x, p["ln_x"], cfg.norm_eps)
-        q = (h @ p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, dh)
-        a = decode_attention(q, cache["xk"][i], cache["xv"][i], Te - 1)
-        x = x + (a @ p["xattn"]["wo"].float()).to(x.dtype)
-        x = _mlp_block(p, x, cfg)
-    return x
+        xk, xv = cache["xk"][i], cache["xv"][i]
+        ln_x = layers.rank_leaves(p["ln_x"], ms.n)
+        hs = [layers.rms_norm(x, ln_x[r], cfg.norm_eps)
+              for r, x in enumerate(xs)]
+        q = [t.reshape(t.shape[0], 1, cfg.n_heads, dh)
+             for t in _col(p["xattn"]["wq"], hs, ms.mesh)]
+        parts = [decode_attention_partial(
+            q[r], _shards(xk)[r], _shards(xv)[r], Te - 1, _block(xk, r, 1)[0])
+            for r in range(ms.n)]
+        o = [t.reshape(t.shape[0], 1, cfg.n_heads * dh)
+             for t in ms.merge(parts, xk, 1)]
+        a = _row(p["xattn"]["wo"], o, ms.mesh)
+        xs = [x + t.to(x.dtype) for x, t in zip(xs, a)]
+        xs = _mlp_block(p, xs, cfg, ms)
+    return xs
 
 
 _DECODE = {"dense": _decode_dense, "vlm": _decode_dense, "moe": _decode_moe,
@@ -387,14 +760,20 @@ _DECODE = {"dense": _decode_dense, "vlm": _decode_dense, "moe": _decode_moe,
            "encdec": _decode_encdec}
 
 
-def make_serve_step(cfg: ModelConfig, sketch: bool = False):
+def make_serve_step(cfg: ModelConfig, sketch: bool = False, mesh=None):
     """``serve_step(params, cache, tokens)``: tokens (B, 1) int on the
     cache's device → (logits (B, 1, vocab) fp32, cache with ``length + 1``).
     ``params`` is `models.model.init_model`'s tree (or its ``to_dict()``),
     any family.  After each call, ``serve_step.last_live`` lists
     ``(block_ids, n_live)`` of every global layer that ran the sketch
     kernel, in layer order (only the dense and vlm decode runs it); the
-    list is refilled in place by the next call."""
+    list is refilled in place by the next call.
+
+    On a ``(data, model)`` ``mesh`` the cache is
+    `kv_cache.init_cache(..., mesh=mesh)`'s, the weights
+    `parallel.param_specs.shard_params`'s, ``tokens`` lie on any device,
+    and the logits come back on the mesh's first device; ``last_live``
+    holds the whole batch's lists there."""
     if cfg.family not in _DECODE:
         raise ValueError(cfg.family)
     decode = _DECODE[cfg.family]
@@ -412,23 +791,34 @@ def make_serve_step(cfg: ModelConfig, sketch: bool = False):
                              f"and has no room for another")
         if views["params"] is not params:
             tree = params.to_dict() if hasattr(params, "to_dict") else params
+            if mesh is not None and not isinstance(tree["ln_f"], Sharded):
+                raise ValueError("serve_step on a mesh: place the weights "
+                                 "with param_specs.shard_params")
             views.update(params=params, tree=tree,
                          layers=_layer_views(cfg, tree))
         tree = views["tree"]
         sigs = cache.get("block_sigs") if sketch else None
-        x = layers.embed(tree["embedding"], tokens)
-        if cfg.scale_embeddings:
-            # the reference rounds sqrt(d_model) to the activation dtype first
-            x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+        if sigs is not None and cfg.family in ("dense", "vlm"):
+            rows = _shards(cache["k"])[0].shape[2]
+            if rows % SKETCH_BLOCK:
+                raise ValueError(
+                    f"serve_step: a rank's {rows} cache rows are not whole "
+                    f"{SKETCH_BLOCK}-token sketch blocks")
+        ms = _Ranks(cfg, mesh, tokens.shape[0])
         live = []
-        x = decode(cfg, views["layers"], tree, cache, x, length, sigs, live)
-        x = layers.rms_norm(x, tree["ln_f"], cfg.norm_eps)
-        logits = layers.unembed(tree["embedding"], x, cfg.final_softcap)
-        last_live[:] = live
-        return logits, dict(cache, length=length + 1)
+        xs = decode(cfg, views["layers"], tree, cache, ms.embed(tree, tokens),
+                    length, sigs, live, ms)
+        last_live[:] = [ms.global_list(ids_n) for ids_n in live]
+        return ms.logits(tree, xs), dict(cache, length=length + 1)
 
     serve_step.last_live = last_live
     return serve_step
+
+
+def _embed_scale(cfg: ModelConfig, dtype) -> float:
+    """``sqrt(d_model)`` rounded to the activation dtype, as the reference
+    scales the embeddings."""
+    return float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
 
 
 @torch.no_grad()
@@ -436,8 +826,23 @@ def encode_cross_cache(params, cfg: ModelConfig, frames, cache) -> dict:
     """Run the encoder once over ``frames (B, enc_frames, d_model)`` (the
     stub frontend's embeddings) and return the cache with every decoder
     layer's cross-attention ``xk`` / ``xv``, bfloat16 as the reference
-    stores them (whisper-style serving prefill)."""
+    stores them (whisper-style serving prefill).  On a mesh (``cache``
+    from `kv_cache.init_cache` with one) each distinct batch block of the
+    cross cache is encoded once a device with its layers' weights
+    gathered, and each rank keeps its block of the sequence."""
     tree = params.to_dict() if hasattr(params, "to_dict") else params
+    if isinstance(cache["xk"], Sharded):
+        return _encode_cross_cache_mesh(tree, cfg, frames, cache)
+    layer = lambda name, i: model_lib.layer_params(tree[name], i)
+    xk, xv = _cross_kv(layer, tree["enc_ln_f"], cfg, frames)
+    return dict(cache, xk=xk, xv=xv)
+
+
+def _cross_kv(layer, enc_ln_f, cfg: ModelConfig, frames):
+    """The encoder over ``frames`` and each decoder layer's cross keys and
+    values, bfloat16 ``(L, B, Te, Hkv, dh)``; ``layer(stack, i)`` gives
+    layer ``i``'s weights of stack ``"enc_blocks"`` / ``"dec_blocks"`` on
+    ``frames``' device."""
     dt = model_lib._dtype(cfg)
     B, Te, _ = frames.shape
     dh = cfg.resolved_head_dim
@@ -445,7 +850,7 @@ def encode_cross_cache(params, cfg: ModelConfig, frames, cache) -> dict:
                            device=frames.device).expand(B, Te)
     x = frames.to(dt) + model_lib._sinusoid(Te, cfg.d_model, dt, frames.device)
     for i in range(cfg.n_enc_layers):
-        p = model_lib.layer_params(tree["enc_blocks"], i)
+        p = layer("enc_blocks", i)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         a, _ = layers.attention(p["attn"], h, enc_pos, n_heads=cfg.n_heads,
                                 n_kv_heads=cfg.n_kv_heads, head_dim=dh,
@@ -454,11 +859,36 @@ def encode_cross_cache(params, cfg: ModelConfig, frames, cache) -> dict:
         x = x + a
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + layers.mlp(p["mlp"], h, act=layers.gelu_tanh)
-    enc = layers.rms_norm(x, tree["enc_ln_f"], cfg.norm_eps)
+    enc = layers.rms_norm(x, enc_ln_f, cfg.norm_eps)
     xk, xv = [], []
     for i in range(cfg.n_layers):
-        p = model_lib.layer_params(tree["dec_blocks"], i)["xattn"]
+        p = layer("dec_blocks", i)["xattn"]
         for out, w in ((xk, p["wk"]), (xv, p["wv"])):
             out.append((enc @ w).reshape(B, Te, cfg.n_kv_heads, dh)
                        .to(torch.bfloat16))
-    return dict(cache, xk=torch.stack(xk), xv=torch.stack(xv))
+    return torch.stack(xk), torch.stack(xv)
+
+
+
+def _encode_cross_cache_mesh(tree, cfg: ModelConfig, frames, cache) -> dict:
+    """`encode_cross_cache` into a mesh cache: the whole batch encoded once
+    a device (each layer's weights gathered there; the same products as on
+    one device), each rank keeping its blocks of the batch and the
+    sequence, bfloat16."""
+    mesh = cache["xk"].mesh
+    done: dict = {}
+    out = {"xk": [], "xv": []}
+    for r, dev in enumerate(mesh.devices):
+        if dev not in done:
+            def layer(name, i, r=r):
+                return layers.gathered_tree(
+                    model_lib.layer_params(tree[name], i))[r]
+            done[dev] = _cross_kv(layer, tree["enc_ln_f"].gathered()[r], cfg,
+                                  frames.to(dev))
+        for name, full in zip(("xk", "xv"), done[dev]):
+            b0, nb = _block(cache[name], r, 1)
+            s0, size = _block(cache[name], r, 2)
+            out[name].append(full[:, b0:b0 + nb, s0:s0 + size].contiguous())
+    return dict(cache, **{name: Sharded(shards, cache[name].spec, mesh,
+                                        cache[name].shape)
+                          for name, shards in out.items()})

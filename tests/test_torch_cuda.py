@@ -34,7 +34,11 @@ per-example SW-AKDE updates, a train step that repeats bit for bit, and
 one train step of each other family's smoke config equal to the CPU's.
 LM training on a (data, model) mesh: a 2 x 2 mesh of one card repeated
 equal to the same mesh on the CPU (dense and ``moe_ep``), and cards 0..3
-equal to one card repeated.
+equal to one card repeated.  Decode on a mesh: `sketch_decode_attn`'s
+partial entry (a rank's block of a sequence: the output and its
+log-sum-exp) against its plain version, four blocks' partials merged equal
+to the whole-cache kernel, the smoke decodes on a 2 x 2 mesh of one card
+equal to the CPU mesh's, and cards 0..3 equal to one card repeated.
 """
 import pytest
 import torch
@@ -602,6 +606,189 @@ def test_sketch_decode_attn_kernel_matches_plain(dev, B, Hkv, G, dh, S, bs, frac
         plain = ref.sketch_decode_attn_ref(q[b].to(dtype), k[b], v[b], live[b],
                                            kv_len, bs, softcap)
         torch.testing.assert_close(one, plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,S,bs,frac,kv_len,dtype", [
+    (1, 4, 2, 256, 32_768, 512, 0.5, 32_700, torch.bfloat16),  # lm_long block
+    (4, 4, 2, 256, 1024, 512, 0.6, 1000, torch.bfloat16),      # lm_serve block
+    (2, 2, 1, 64, 1024, 64, 0.7, 1000, torch.bfloat16),
+    (2, 2, 4, 128, 1024, 128, 0.7, 777, torch.bfloat16),       # ragged kv_len
+    (1, 2, 8, 256, 2048, 256, 0.7, 2048, torch.bfloat16),
+    (2, 2, 2, 64, 1024, 64, 0.0, 1000, torch.bfloat16),        # nothing live
+    (3, 2, 4, 64, 1024, 128, 0.5, 900, torch.float32),
+    (2, 2, 2, 128, 1024, 512, 1.0, 1000, torch.float32),
+    (1, 2, 2, 256, 1024, 512, 1.0, 0, torch.float32),           # nothing written
+])
+def test_sketch_decode_attn_partial_matches_plain(dev, B, Hkv, G, dh, S, bs,
+                                                  frac, kv_len, dtype):
+    """The partial entry (a rank's block of a sequence): the normalised
+    output and its log-sum-exp against the plain version within 2e-5 (-inf
+    and zeros where nothing is live), one launch a call, the same bits
+    twice."""
+    q, k, v, live, ids, n_live = _sda_case(dev, B, Hkv, G, dh, S, bs, frac,
+                                           dtype, S + G + 1)
+    before = ops.LAUNCHES["sketch_decode_attn"]
+    o, lse = sketch_decode_attn.sketch_decode_attn_partial(
+        q, k, v, ids, n_live, kv_len, bs)
+    assert ops.LAUNCHES["sketch_decode_attn"] == before + 1
+    wo, wl = ref.sketch_decode_attn_partial_ref(q, k, v, live, kv_len, bs)
+    assert lse.shape == (B, Hkv, G) and lse.dtype == torch.float32
+    fin = torch.isfinite(wl)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert torch.isneginf(lse[~fin]).all() and not o[~fin].any()
+    torch.testing.assert_close(o, wo, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse[fin], wl[fin], rtol=2e-5, atol=2e-5)
+    o2, l2 = sketch_decode_attn.sketch_decode_attn_partial(
+        q, k, v, ids, n_live, kv_len, bs)
+    assert torch.equal(o, o2) and torch.equal(lse, l2)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_sketch_decode_attn_partials_merge_to_the_whole_kernel(dev, softcap):
+    """Four blocks of a 16 384-token sequence (gemma3-4b's heads, bf16),
+    one partial launch each, one of them with nothing live, merged in rank
+    order (`sharding.merge_partials`) equal to the whole-cache kernel
+    within 2e-5."""
+    from repro_torch.parallel import sharding
+    B, Hkv, G, dh, S, bs, kv_len = 2, 4, 2, 256, 16_384, 512, 15_000
+    q, k, v, live, ids, n_live = _sda_case(dev, B, Hkv, G, dh, S, bs, 0.5,
+                                           torch.bfloat16, 3)
+    live[:, 8:16] = False                      # block 1 of 4: nothing live
+    live[:, (kv_len - 1) // bs] = True
+    ids, n_live = sketch_decode_attn.compact_live(live)
+    whole = sketch_decode_attn.sketch_decode_attn(q, k, v, ids, n_live, kv_len,
+                                                  bs, softcap)
+    size, parts = S // 4, []
+    before = ops.LAUNCHES["sketch_decode_attn"]
+    for r in range(4):
+        s0 = r * size
+        ids_r, n_r = sketch_decode_attn.compact_live(
+            live[:, s0 // bs:(s0 + size) // bs])
+        parts.append(sketch_decode_attn.sketch_decode_attn_partial(
+            q, k[:, s0:s0 + size].contiguous(), v[:, s0:s0 + size].contiguous(),
+            ids_r, n_r, min(max(kv_len - s0, 0), size), bs, softcap))
+    assert ops.LAUNCHES["sketch_decode_attn"] == before + 4
+    assert torch.isneginf(parts[1][1]).all()
+    mesh = sharding.Mesh((dev,) * 4, ("model",))
+    for got in sharding.merge_partials(parts, mesh, "model"):
+        torch.testing.assert_close(got, whole, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch,B", [("gemma3-4b", 1), ("deepseek-moe-16b", 2),
+                                    ("zamba2-2.7b", 2), ("whisper-large-v3", 2)])
+def test_mesh_decode_on_the_card_matches_the_cpu_mesh(dev, arch, B):
+    """The smoke config's fp32 decode on a 2 x 2 mesh of one card repeated
+    against the same mesh of CPU entries (gemma3-4b with the sketch at B =
+    1 over four 512-token blocks: the partial kernel on every rank that
+    holds a written row), 4 steps from a random 1000-token prefix: logits
+    within 1e-5 of their largest, every float32 cache leaf within 1e-5 of
+    its largest (the bfloat16 cross cache within one bf16 ulp: an fp32
+    value near a rounding boundary rounds either way), the block
+    signatures and live lists equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel import param_specs
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                              param_dtype="float32")
+    sketch = arch == "gemma3-4b"
+    tree = model.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
+    g = torch.Generator().manual_seed(10)
+    one = kv_cache.init_cache(cfg, B, 2048, sketch=sketch, device="cpu")
+    for name, x in one.items():
+        if name in ("k", "v", "dk", "dv"):
+            x[:, :, :1000] = torch.randn(x[:, :, :1000].shape, generator=g)
+        elif name == "block_sigs":
+            x[:, :, :2] = torch.rand(x[:, :, :2].shape, generator=g) < 0.5
+        elif name in ("ssm_state", "conv_buf"):
+            x.copy_(torch.randn(x.shape, generator=g))
+    one["length"] = 1000
+    tokens = torch.randint(0, cfg.vocab, (B, 4), generator=g)
+    out = {}
+    for where in ("cuda:0", "cpu"):
+        mesh = make_test_mesh(2, 2, where)
+        cache = kv_cache.shard_cache(one, cfg, mesh)
+        params = param_specs.shard_params(tree, mesh)
+        if cfg.family == "encdec":
+            frames = torch.randn((B, cfg.enc_frames, cfg.d_model),
+                                 generator=torch.Generator().manual_seed(11))
+            cache = serve_step.encode_cross_cache(params, cfg, frames, cache)
+        step = serve_step.make_serve_step(cfg, sketch=sketch, mesh=mesh)
+        logits, lives = [], []
+        before = ops.LAUNCHES["sketch_decode_attn"]
+        for t in range(4):
+            lg, cache = step(params, cache, tokens[:, t:t + 1])
+            logits.append(lg.cpu())
+            lives.append([(i.cpu(), n.cpu()) for i, n in step.last_live])
+        out[where] = (logits, lives, {k: v.full("cpu") for k, v in cache.items()
+                                      if k != "length"},
+                      ops.LAUNCHES["sketch_decode_attn"] - before)
+    (lc, vc, cc, nc), (lp, vp, cp, _) = out["cuda:0"], out["cpu"]
+    for a, b in zip(lc, lp):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    assert len(vc) == len(vp)
+    for x, y in zip(vc, vp):
+        for (i, n), (j, m) in zip(x, y):
+            assert torch.equal(i, j) and torch.equal(n, m)
+    for name, want in cp.items():
+        if want.dtype == torch.bool:
+            assert torch.equal(cc[name], want), name
+            continue
+        if want.dtype == torch.bfloat16:   # the cross cache: one bf16 ulp
+            got, want = cc[name].float(), want.float()
+            assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs()).all())
+            continue
+        fin = torch.isfinite(want)
+        top = float(want[fin].abs().max()) if fin.any() else 1.0
+        torch.testing.assert_close(cc[name][fin].float(), want[fin].float(),
+                                   rtol=0, atol=1e-5 * top)
+    # the global layers of gemma3-4b's smoke stack on the ranks whose block
+    # starts at or below the token: blocks at 0 and 512 of four
+    assert nc == (2 * 2 * 4 if sketch else 0)
+
+
+def test_mesh_decode_on_four_cards_matches_one_card_repeated(dev):
+    """The gemma3-4b smoke decode with the sketch at B = 1 over cards 0..3
+    (the sequence over data and model) against the same mesh on cuda:0
+    repeated: logits and caches bit for bit (the same ops in the same
+    order on each card; the peer copies change no value)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel import param_specs
+    from repro_torch.serve import kv_cache, serve_step
+    cfg = dataclasses.replace(registry.get_smoke_config("gemma3-4b"),
+                              param_dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(12), "cpu")
+    one = kv_cache.init_cache(cfg, 1, 2048, sketch=True, device="cpu")
+    g = torch.Generator().manual_seed(13)
+    for name in ("k", "v"):
+        one[name][:, :, :1500] = torch.randn(one[name][:, :, :1500].shape,
+                                             generator=g)
+    one["block_sigs"][:, :, :3] = torch.rand((6, 1, 3, 64), generator=g) < 0.5
+    one["length"] = 1500
+    tokens = torch.randint(0, cfg.vocab, (1, 4), generator=g)
+    out = {}
+    for where in ("cuda", "cuda:0"):
+        mesh = make_test_mesh(2, 2, where)
+        cache = kv_cache.shard_cache(one, cfg, mesh)
+        params = param_specs.shard_params(tree, mesh)
+        step = serve_step.make_serve_step(cfg, sketch=True, mesh=mesh)
+        logits = []
+        for t in range(4):
+            lg, cache = step(params, cache, tokens[:, t:t + 1])
+            logits.append(lg.cpu())
+        out[where] = logits, {k: v.full("cpu") for k, v in cache.items()
+                              if k != "length"}
+    for a, b in zip(out["cuda"][0], out["cuda:0"][0]):
+        assert torch.equal(a, b)
+    for name, x in out["cuda:0"][1].items():
+        assert torch.equal(out["cuda"][1][name], x), name
 
 
 def test_sketch_decode_attn_edge_cases(dev, monkeypatch):

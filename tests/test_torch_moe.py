@@ -7,8 +7,8 @@ probabilities within 1e-6 of each other; the outputs are then compared on
 the tokens before the first such tie, whose routes and capacity ranks do
 not depend on it), aux loss within 1e-6 relative.  MLA: ``mla_latent`` and
 ``mla_queries`` within 1e-6 of their largest value, and 8 steps of the
-absorbed decode block (``_mla_decode_block``) with its latent cache within
-1e-5.  A bfloat16 MoE decode (deepseek-moe-16b's smoke config, 4 steps)
+absorbed decode block (the reference's ``_mla_decode_block``, the port's
+``_mla_block`` on one rank) with its latent cache within 1e-5.  A bfloat16 MoE decode (deepseek-moe-16b's smoke config, 4 steps)
 within the reference's own bf16 bound, 3e-2 of the largest logit
 (tests/test_serve.py).
 """
@@ -120,7 +120,8 @@ def test_mla_latent_queries_and_decode_block_match_reference():
     xs = rng.normal(size=(steps, B, 1, cfg.d_model)).astype(np.float32)
     for n in range(steps):
         y_j, *cc_j = step_j(blk, xs[n], *cc_j, jnp.int32(n))
-        y_t = tserve._mla_decode_block(pt, _T(xs[n]), *cc_t, n, tcfg)
+        y_t = tserve._mla_block(pt, [_T(xs[n])], *cc_t, n, tcfg,
+                                tserve._Ranks(tcfg, None, B))[0]
         assert_rel(y_t, np.asarray(y_j), 1e-5)
     for g, w in zip(cc_t, cc_j):
         assert_rel(g, np.asarray(w), 1e-5)
