@@ -79,14 +79,27 @@ user calls, at full width:
   sharded by ``param_specs`` against the unsharded step on the same card
   at the reference's bounds (loss 2e-4; parameters rtol 2e-4, atol 2e-5),
   every gradient leaf and the gradient norm against the unsharded ones,
-  the MoE aux against the per-shard estimate; ``moe_ep`` against ``moe_dense``
+  the MoE aux against the per-shard estimate; the same for the other five
+  families: deepseek-v3-671b at its smoke width, 1 dense + 1 MoE layer
+  (MLA split by heads, the MoE expert-parallel, the MTP head's
+  cross-entropy), zamba2-2.7b's one
+  group (Mamba2 split by heads, the shared block; within one bf16 ulp),
+  xlstm-125m's one pair (the mLSTM split by heads), whisper-large-v3's one
+  encoder and one decoder layer over 1500 frames (the cross-attention from
+  each rank's encoder rows) and internvl2-76b's one layer after 256
+  patches; ``moe_ep`` against ``moe_dense``
   at deepseek-moe-16b's published width (one bf16 layer); the compressed
-  all-reduce's 20-step bound; then deepseek-moe-16b in bf16 at published
-  width (6 of 28 layers: four shards of the whole model on one card)
-  through the ``Trainer`` on the mesh (AdamW, the drift monitor, B = 2 x
-  S = 4096, 2 steps and one profiled).  With ``--cards 4`` (cards 0..3,
-  data 2 x model 2): the same gates but the compressed all-reduce's
-  across cards, then all 28 layers;
+  all-reduce's 20-step bound; then in bf16 at published width through the
+  ``Trainer`` on the mesh (AdamW, the drift monitor, B = 2 x S = 4096, 2
+  steps and one profiled): deepseek-moe-16b (6 of 28 layers) and
+  zamba2-2.7b (2 of its 9 groups), four shards of the whole model on one
+  card.  With ``--cards 4`` (cards 0..3, data 2 x model 2): the same gates
+  but the compressed all-reduce's, deepseek-v3's smoke step repeated bit
+  for bit and against the same mesh on one card, then deepseek-moe-16b's
+  28 layers and deepseek-v3-671b at published width (3 dense + 1 MoE layer
+  and the MTP head, 16.9 G parameters, Adam8bit, its 8 microbatches, B =
+  16 x S = 2048, one step and one profiled), each card's peak against its
+  reckoning;
 * **batched decode on a (data, model) mesh** (``lm_mesh_decode``, next):
   the fp32 gates (TF32 off) of every decode branch on one card repeated
   as a 2 x 2 mesh (gemma3-4b with the sketch at B = 1, the sequence over
@@ -94,9 +107,10 @@ user calls, at full width:
   deepseek-moe-16b (GQA, ``moe_ep``); deepseek-v3-671b's MLA at its smoke
   width; zamba2-2.7b, Mamba2 heads over model; xlstm-125m; whisper-large-v3
   with its cross cache split), each family's smallest unit at published
-  width, 4 steps from a random prompt, against the one-device step on the
-  same card; ``sketch_decode_attn``'s partial entry against its plain
-  version at the lm_long shape split in four and at the lm_serve shape, and
+  width, 2 steps from a random prompt (the second into the next rank's
+  block of the sequence), against the one-device step on the same card;
+  ``sketch_decode_attn``'s partial entry against its plain version at the
+  lm_long shape split in four and at the lm_serve shape, and
   four ranks' partials merged against the whole-cache kernel; then bf16
   at published width against one device on the same weights: gemma3-4b,
   sketch on, B = 1 over 131 072 tokens (four blocks of 32 768), 32 steps,
@@ -155,9 +169,8 @@ user calls, at full width:
   hot slots over 72 tenants, then a 2048-query block of top-50 and (c, r)
   queries.  Every tenant's row must equal its sub-stream through the
   single-sketch core loop on the card with the fleet's codes and keys, and
-  every answer its own sketch's; each kind at T = 8 (re-run on the CPU),
-  and RACE and SW-AKDE at T = 256, launches each commit kernel once an
-  operation;
+  every answer its own sketch's; each kind at T = 8 (re-run on the CPU)
+  launches each commit kernel once an operation;
 * **the in-process merge cluster** at K = 1, 2 and 4 workers on the card:
   ``ClusterRetrievalService`` (SIFT1M shape, the stream's first 524 288
   points; the merge against
@@ -347,17 +360,56 @@ TRAIN_FAM_SSD_TOL = 2.0 ** -8
 # MESH_EP_B x MESH_EP_S tokens at capacity factor 64 (the reference's
 # bounds: rtol / atol 2e-2, mean error < 5e-3; aux equal to the per-shard
 # estimate).  The compressed all-reduce's 20-step error-feedback bound.
-# Then bf16 at published width through the Trainer (AdamW, the drift
-# monitor, no checkpoint), B x S = MESH_RUN_B x MESH_RUN_S: deepseek-moe-16b
-# cut to MESH_RUN_LAYERS layers on one card repeated as a 2 x 2 mesh (four
-# shards of the whole model on one card), or all 28 on cards 0..3
+# The other five families' gates (MESH_FAMILY_GATES: arch, depth, S, width;
+# one AdamW step each, the batch's frames or patches from launch.inputs): each
+# family's smallest unit at published width (zamba2 one group, xlstm one
+# pair at S = 64, whisper one encoder and one decoder layer over its 1500
+# frames, internvl2 one layer after its 256 patches), deepseek-v3 at its
+# smoke width (its smoke config's: one fp32 MoE layer at published width is
+# 46 GB of weights) cut to 1 dense + 1 MoE layer and the MTP head, at one
+# microbatch (its published 8 run on cards 0..3); the hybrid's gradients
+# and gradient norm within one bf16 ulp of the largest (TRAIN_FAM_SSD_TOL),
+# deepseek-v3's at the MoE bounds and its MTP cross-entropy within
+# MESH_LOSS_TOL.  (The smoke config's 3 MoE layers move the
+# cross-entropy by up to 2.8e-4 at S = 256 through the ranks' bf16
+# combine; on the CPU the reference's own 2 x 2 mesh moves its MTP
+# cross-entropy by 2.4e-4 there, tests/torch_mesh_drift.py.)  The sharded step runs first;
+# its parameters and first moment are gathered, its state dropped, and the
+# unsharded step runs on the same parameters drawn again from the seed
+# (internvl2's fp32 layer and embeddings: 11.9 GB, each step's state four
+# times that).
+# Then bf16 at published width through the Trainer (the drift monitor, no
+# checkpoint; MESH_RUNS: arch, depth, B, S, optimizer, steps before the
+# profiled one): deepseek-moe-16b cut to 6 layers and zamba2-2.7b to 2 of
+# its 9 groups on one card repeated as a 2 x 2 mesh (four shards of the
+# whole model on one card); on cards 0..3 (MESH_RUNS_4): deepseek-moe-16b
+# whole, and deepseek-v3-671b at 3 dense + 1 MoE layer and the MTP head
+# (16.9 G parameters: Adam8bit, 2.1 bytes a parameter, as AdamW's 8 would
+# leave no room) with its published 8 microbatches accumulated in bf16.
+# Each card's peak against `_reckon_mesh_bytes`.  Cards 0..3 also run
+# deepseek-v3's smoke step twice (bit for bit) and against the same mesh on
+# card 0 repeated (metrics within 1e-6 relative, gradients within 1e-4 of
+# their largest: only the order in which the cards' backward threads add a
+# block's terms differs)
 MESH_SHAPE = (2, 2)
 MESH_GATE_B, MESH_GATE_S = 4, 256
 MESH_LOSS_TOL, MESH_RTOL, MESH_ATOL = 2e-4, 2e-4, 2e-5
 MESH_GATE_LR = 1e-3
-MESH_GRAD_TOL = {"dense": 1e-4, "moe": 2e-2, "router": 1e-1}
+MESH_GRAD_TOL = {"dense": 1e-4, "moe": 2e-2, "router": 1e-1,
+                 "hybrid": TRAIN_FAM_SSD_TOL, "ssm": 1e-4, "encdec": 1e-4,
+                 "vlm": 1e-4}
+CMP_PIECE = 2 ** 26          # elements a gate compares at a time
+MESH_FAMILY_GATES = (("deepseek-v3-671b", 2, MESH_GATE_S, "smoke"),
+                     ("zamba2-2.7b", 6, MESH_GATE_S, "published"),
+                     ("xlstm-125m", 2, 64, "published"),
+                     ("whisper-large-v3", 1, MESH_GATE_S, "published"),
+                     ("internvl2-76b", 1, MESH_GATE_S, "published"))
 MESH_EP_B, MESH_EP_S = 2, 512
-MESH_RUN_B, MESH_RUN_S, MESH_RUN_LAYERS, MESH_RUN_STEPS = 2, 4096, 6, 2
+MESH_RUNS = (("deepseek-moe-16b", 6, 2, 4096, "adamw", 2),
+             ("zamba2-2.7b", 12, 2, 4096, "adamw", 2))
+MESH_RUNS_4 = (("deepseek-moe-16b", None, 2, 4096, "adamw", 2),
+               ("deepseek-v3-671b", 4, 16, 2048, "adam8bit", 1))
+MESH_FOUR_B, MESH_FOUR_S = 8, 32
 
 # lm_mesh_decode: batched decode on a (data, model) mesh.  fp32 gates (TF32
 # off) on a 2 x 2 mesh of one card repeated, each family's smallest unit at
@@ -377,15 +429,15 @@ MESH_RUN_B, MESH_RUN_S, MESH_RUN_LAYERS, MESH_RUN_STEPS = 2, 4096, 6, 2
 # following the mesh step's live lists and expert ids (their flips under
 # bf16 rounding counted); the MoE configs dropless (`_dropless`).  Cards
 # 0..3: the reference's long_500k, B = 1 over MDEC_500K_S
-MDEC_GATES = (("gemma3-4b", 6, 1, 8192, 6142, True),
-              ("qwen3-4b", 1, 4, 1024, 510, False),
-              ("internvl2-76b", 2, 2, 4096, 2046, True),
-              ("deepseek-moe-16b", 2, 2, 1024, 510, False),
-              ("deepseek-v3-671b", "smoke", 1, 1024, 254, False),
-              ("zamba2-2.7b", 6, 2, 1024, 510, False),
+MDEC_GATES = (("gemma3-4b", 6, 1, 8192, 6143, True),
+              ("qwen3-4b", 1, 4, 1024, 511, False),
+              ("internvl2-76b", 2, 2, 4096, 2047, True),
+              ("deepseek-moe-16b", 2, 2, 1024, 511, False),
+              ("deepseek-v3-671b", "smoke", 1, 1024, 255, False),
+              ("zamba2-2.7b", 6, 2, 1024, 511, False),
               ("xlstm-125m", 2, 2, 0, 0, False),
-              ("whisper-large-v3", 2, 2, 1024, 510, False))
-MDEC_GATE_STEPS = 4
+              ("whisper-large-v3", 2, 2, 1024, 511, False))
+MDEC_GATE_STEPS = 2
 MDEC_LOGIT_TOL, MDEC_KV_TOL, MDEC_STATE_TOL = 1e-5, 3e-6, 1e-5
 MDEC_BF16_COSINE = 0.999
 MDEC_LONG_STEPS = 32
@@ -405,9 +457,10 @@ SERVICE_KERNELS = ("srp_hash", "race_hist", "batch_score_topk",
 # chunk all one tenant's; RACE 256 hot slots over 1024 tenants, SW-AKDE 256
 # tenants in 256 slots (window 8192 a tenant), S-ANN 64 hot slots over 72
 # tenants (n_max 65 536 a tenant: 58 MB of tables each); each kind also at
-# T = 8 (4 chunks, re-run on the CPU) and RACE and SW-AKDE at T = 256 (2
-# chunks; S-ANN's T = 256 gate, 16.5 GB of tables, is cut for time: the
-# sharding phase splits an S-ANN fleet of T = 64 by tenant)
+# T = 8 (4 chunks, re-run on the CPU); the T = 256 gates (S-ANN's: 16.5 GB
+# of tables) are cut for time: the sharding phase splits RACE and SW-AKDE
+# fleets of T = 256 by tenant and holds each tenant's row against its
+# single-sketch loop, and an S-ANN fleet of T = 64
 FLEET_ZIPF_S, FLEET_TENANTS, FLEET_HOT, FLEET_HOT_CHUNK = 1.1, 1024, 256, 4
 FLEET_SW_N = KDE_N
 FLEET_RACE_N = KDE_N // 2
@@ -415,13 +468,17 @@ FLEET_SW_TENANTS, FLEET_SW_WINDOW = 256, 8192
 FLEET_SANN_TENANTS, FLEET_SANN_HOT = 72, 64
 FLEET_SANN_NMAX = 65_536
 FLEET_SANN_N = 5 * CHUNK             # reaches the all-one-tenant chunk
-FLEET_GATE_T, FLEET_GATE_CHUNKS = (8, 256), {8: 4, 256: 2}
+FLEET_GATE_T, FLEET_GATE_CHUNKS = (8,), {8: 4}
 FLEET_SANN_GATE_T = (8,)
 FLEET_DURABLE_CHUNKS, FLEET_SNAPSHOT_EVERY, FLEET_QUERIES = 4, 4, 2048
 # the cluster phase: K workers on the one card; the KDE stream stays under
 # every worker's window (65 536 / K) so nothing expires
 CLUSTER_WORKERS = (1, 2, 4)
 CLUSTER_KDE_WINDOW, CLUSTER_KDE_N, CLUSTER_DURABLE_N = 65_536, 61_440, 262_144
+# the points fed past the KDE gate stream before the second gate: they carry
+# a worker of K = 4 past its window (65 536 / 4), so that gate holds a state
+# whose windows have expired (every K of the smoke runs expires there)
+CLUSTER_KDE_TAIL = CLUSTER_KDE_WINDOW // 4
 # the clusters' RACE and S-ANN streams: the first half of each
 CLUSTER_RACE_N, CLUSTER_SANN_N = KDE_N // 2, SANN_N // 2
 # the rpc_cluster phase: the cluster phase's workloads, each worker a spawned
@@ -2186,6 +2243,13 @@ def family_config(arch, n_layers=None, dtype="bfloat16"):
     import dataclasses
     from repro_torch.configs import registry
     cfg = dataclasses.replace(registry.get_config(arch), param_dtype=dtype)
+    return _cut_depth(cfg, n_layers)
+
+
+def _cut_depth(cfg, n_layers):
+    """``cfg`` cut to ``n_layers`` (None: whole), keeping the family's
+    shape (`family_config`)."""
+    import dataclasses
     if n_layers is None:
         return cfg
     cut = dict(n_layers=n_layers)
@@ -2945,12 +3009,16 @@ def _mesh_cards(mesh) -> list:
     return sorted({d.index for d in mesh.devices})
 
 
-def _reckon_mesh_bytes(cfg, mesh) -> dict:
-    """Each card's bytes of weights, gradients and AdamW's two float32
-    moments, from `param_specs` over the global shapes (meta tensors): a
-    rank holds its block of every leaf, a leaf that does not split whole."""
+def _reckon_mesh_bytes(cfg, mesh, optimizer="adamw") -> dict:
+    """Each card's bytes of a training step's state, from `param_specs`
+    over the global shapes (meta tensors): a rank holds its block of every
+    leaf (a leaf that does not split, whole) of the weights, their
+    gradients, ``optimizer``'s state (its init over the meta tree, placed
+    by `param_specs.opt_state_shardings`) and, with microbatches, the
+    accumulator (``grad_accum_dtype``) and its float32 average."""
     import torch
     from repro_torch.models import layers, model
+    from repro_torch.optim import adam
     from repro_torch.parallel import param_specs, sharding
     normal = layers._normal
     layers._normal = lambda gen, shape, scale, dtype, device: torch.empty(
@@ -2959,14 +3027,24 @@ def _reckon_mesh_bytes(cfg, mesh) -> dict:
         tree = model.init_params(cfg, torch.Generator(), "meta")
     finally:
         layers._normal = normal
+    state = adam.OPTIMIZERS[optimizer]().init(tree)
     specs = param_specs.param_shardings(tree, mesh,
                                         fsdp_over_pod=cfg.fsdp_over_pod)
+    o_specs = param_specs.opt_state_shardings(state, specs, mesh)
+    acc = 0
+    if cfg.grad_microbatches > 1:
+        acc = (2 if cfg.grad_accum_dtype == "bfloat16" else 4) + 4
     per_rank = [0] * mesh.size
-    for _, x, spec in param_specs.leaves_with_paths(tree, specs):
+
+    def add(x, spec, per_elem):
         for r in range(mesh.size):
             n = math.prod(sz for _, sz in sharding._blocks(
-                tuple(x.shape), spec, mesh, r))
-            per_rank[r] += n * (2 * x.element_size() + 8)
+                tuple(x.shape), spec, mesh, r)) if x.dim() else 1
+            per_rank[r] += n * per_elem(x)
+    for _, x, spec in param_specs.leaves_with_paths(tree, specs):
+        add(x, spec, lambda x: 2 * x.element_size() + acc)
+    for _, x, spec in param_specs.leaves_with_paths(state, o_specs):
+        add(x, spec, lambda x: x.element_size())
     cards = {}
     for r, d in enumerate(mesh.devices):
         cards[d.index] = cards.get(d.index, 0) + per_rank[r]
@@ -2999,45 +3077,118 @@ def _per_shard_aux(cfg, params, inputs, nm):
     return total * cfg.moe_aux_coef / nm
 
 
-def mesh_step_gate(seed, arch, mesh, device, smi):
-    """``arch`` in fp32 at its published width, depth cut to the family's
-    smallest unit: one AdamW step of the same state and batch unsharded
-    on ``device`` and sharded on ``mesh``; loss and every parameter within
-    the reference's bounds; the MoE aux against the per-shard estimate."""
+def _gate_config(arch, layers=None, width="published"):
+    """An fp32 gate's configuration: ``arch`` at its ``width`` (published,
+    or its smoke config's) cut to ``layers``, one microbatch, the MoE
+    dropless."""
     import dataclasses
+    from repro_torch.configs import registry
+    if width == "smoke":
+        cfg = _cut_depth(dataclasses.replace(registry.get_smoke_config(arch),
+                                             param_dtype="float32"), layers)
+    else:
+        cfg = family_config(arch, layers, "float32")
+    cfg = dataclasses.replace(cfg, grad_microbatches=1)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_topk)
+    return cfg
+
+
+def _gate_batch(cfg, B, S, seed, device) -> dict:
+    """The token stream's batch of B x S, and the stub frontend's frames
+    or patches from `launch.inputs.make_batch` (bfloat16) on ``device``."""
+    import torch
+    from repro_torch.launch import inputs
+    batch = {"tokens": torch.from_numpy(_train_tokens(cfg, B, S, seed))}
+    if cfg.family in ("vlm", "encdec"):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        seq = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+        made = inputs.make_batch(cfg, B, seq, gen)
+        batch.update({k: v for k, v in made.items() if k != "tokens"})
+    return batch
+
+
+def _steps_apart(got, want, gtol):
+    """Two one-step results ``(parameters, AdamW's first moment)``: the
+    largest parameter error, its ratio to the reference's bound (rtol
+    MESH_RTOL, atol MESH_ATOL, plus 2 MESH_GATE_LR where the update's sign
+    is free: the two gradients differ by more than half ``want``'s, or
+    ``want``'s is under 100 eps), the largest gradient error over its
+    leaf's largest and ``gtol(name)``, and how many parameters only the
+    sign-free rule holds."""
     import torch
     from repro_torch.checkpoint.checkpoint import _flatten
+    pieces = lambda t: t.reshape(-1).split(CMP_PIECE)   # bounded temporaries
+    worst_abs, worst_ratio, worst_grad, sign_free = 0.0, 0.0, 0.0, 0
+    for (k, a), (_, b), (_, ga), (_, gb) in zip(
+            _flatten(got[0]), _flatten(want[0]), _flatten(got[1]),
+            _flatten(want[1])):
+        top = max(float(p.abs().max()) for p in pieces(gb))
+        for a, b, ga, gb in zip(pieces(a), pieces(b), pieces(ga), pieces(gb)):
+            b, gb = b.float().to(a.device), gb.to(a.device)
+            worst_grad = max(worst_grad, float((ga - gb).abs().max())
+                             / max(top, 1e-30) / gtol(k))
+            free = ((ga - gb).abs() > 0.5 * gb.abs()) | (gb.abs() <= 1e-7)
+            d = (a.float() - b).abs()
+            bound = MESH_ATOL + MESH_RTOL * b.abs()
+            worst_abs = max(worst_abs, float(d.max()))
+            worst_ratio = max(worst_ratio, float((d / (
+                bound + torch.where(free, 2 * MESH_GATE_LR, 0.0))).max()))
+            sign_free += int(((d > bound) & free).sum())
+    return worst_abs, worst_ratio, worst_grad, sign_free
+
+
+def mesh_step_gate(seed, arch, mesh, device, smi, layers=None,
+                   S=MESH_GATE_S, width="published"):
+    """``arch`` in fp32 at its ``width`` (`_gate_config`; depth
+    ``layers``, by default the family's smallest unit): one
+    AdamW step of the same state and batch sharded on ``mesh``, then
+    unsharded on ``device``; loss (and MTP cross-entropy) and every
+    parameter within the reference's bounds; the MoE aux against the
+    per-shard estimate.  The sharded step's parameters and first moment
+    are gathered and its state dropped before the unsharded step, whose
+    parameters are drawn again from the seed."""
+    import torch
     from repro_torch.models import model, moe
     from repro_torch.optim import adam
     from repro_torch.parallel import param_specs
     from repro_torch.train import train_step as ts
-    cfg = family_config(arch, 1 if arch == "qwen3-4b" else 2, "float32")
-    if cfg.family == "moe":
-        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_topk)
+    if layers is None:
+        layers = 1 if arch == "qwen3-4b" else 2
+    cfg = _gate_config(arch, layers, width)
     where = f"lm_mesh gate {arch}"
     gc.collect()
     torch.cuda.empty_cache()
-    gen = torch.Generator(device=device).manual_seed(seed + 80)
-    params = model.init_params(cfg, gen, device)
-    tokens = torch.from_numpy(_train_tokens(cfg, MESH_GATE_B, MESH_GATE_S,
-                                            seed + 81))
+    t_gate = time.perf_counter()
+    draw = lambda: model.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed + 80), device)
+    batch = _gate_batch(cfg, MESH_GATE_B, S, seed + 81, device)
     opt = adam.adamw(lr=MESH_GATE_LR, warmup=1)
     mstep, _ = ts.make_train_step(cfg, opt, mesh)
-    sharded = param_specs.shard_params(params, mesh)
+    sharded = param_specs.shard_params(draw(), mesh)
     mstate = ts.TrainState(params=sharded,
                            opt_state=adam.init_on_mesh(opt, sharded),
                            step=torch.zeros((), dtype=torch.int32,
                                             device=mesh.devices[0]))
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
     inputs, orig, capture = _route_capture()
     moe.moe_ranks = capture
     try:
         sync_all()
         t0 = time.perf_counter()
-        mstate, mm = mstep(mstate, {"tokens": tokens})
+        mstate, mm = mstep(mstate, batch)
         sync_all()
         mesh_ms = (time.perf_counter() - t0) * 1e3
     finally:
         moe.moe_ranks = orig
+    got = param_specs.gather_params(mstate.params)
+    got_m = param_specs.gather_params(mstate.opt_state.m)
+    del mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = draw()
     want_aux = (_per_shard_aux(cfg, params, inputs,
                                cfg.n_layers - cfg.n_dense_layers)
                 if cfg.family == "moe" else 0.0)
@@ -3045,41 +3196,33 @@ def mesh_step_gate(seed, arch, mesh, device, smi):
     step, _ = ts.make_train_step(cfg, opt)
     state = ts.TrainState(params=params, opt_state=opt.init(params),
                           step=torch.zeros((), dtype=torch.int32, device=device))
+    del params
     sync(device)
     t0 = time.perf_counter()
-    state, m = step(state, {"tokens": tokens.to(device)})
+    state, m = step(state, {k: v.to(device) for k, v in batch.items()})
     sync(device)
     single_ms = (time.perf_counter() - t0) * 1e3
-    got = param_specs.gather_params(mstate.params)
-    got_m = param_specs.gather_params(mstate.opt_state.m)
+    want = (state.params, state.opt_state.m)
+    del state                   # AdamW's second moment, not compared
+    gc.collect()
+    torch.cuda.empty_cache()
     gtol = lambda k: MESH_GRAD_TOL["router" if k.endswith("router")
                                    else cfg.family]
-    worst_abs, worst_ratio, worst_grad, sign_free = 0.0, 0.0, 0.0, 0
-    for (k, a), (_, b), (_, ga), (_, gb) in zip(
-            _flatten(got), _flatten(state.params), _flatten(got_m),
-            _flatten(state.opt_state.m)):
-        b, gb = b.float().to(a.device), gb.to(a.device)
-        top = float(gb.abs().max())
-        worst_grad = max(worst_grad, float((ga - gb).abs().max())
-                         / max(top, 1e-30) / gtol(k))
-        free = ((ga - gb).abs() > 0.5 * gb.abs()) | (gb.abs() <= 1e-7)
-        d = (a.float() - b).abs()
-        strict = d / (MESH_ATOL + MESH_RTOL * b.abs())
-        worst_abs = max(worst_abs, float(d.max()))
-        worst_ratio = max(worst_ratio, float((d / (
-            MESH_ATOL + MESH_RTOL * b.abs()
-            + torch.where(free, 2 * MESH_GATE_LR, 0.0))).max()))
-        sign_free += int(((strict > 1) & free).sum())
+    worst_abs, worst_ratio, worst_grad, sign_free = _steps_apart(
+        (got, got_m), want, gtol)
     gn_err = abs(float(mm["grad_norm"]) / float(m["grad_norm"]) - 1)
     gn_tol = MESH_GRAD_TOL[cfg.family]
     key = "ce" if cfg.family == "moe" else "loss"
     loss_err = abs(float(mm[key]) - float(m[key]))
+    mtp_err = abs(float(mm["mtp_ce"]) - float(m["mtp_ce"])) \
+        if "mtp_ce" in m else 0.0
     aux_err = (abs(float(mm["moe_aux"]) - want_aux) / max(abs(want_aux), 1e-30)
                if cfg.family == "moe" else 0.0)
     row = {"phase": "lm_mesh", "part": "fp32_gate", "arch": arch,
            "nvidia_smi": smi, "mesh": dict(mesh.shape),
            "cards": _mesh_cards(mesh), "layers_run": cfg.n_layers,
-           "B": MESH_GATE_B, "S": MESH_GATE_S,
+           "width": width, "B": MESH_GATE_B, "S": S,
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
            "capacity_factor": cfg.capacity_factor if cfg.family == "moe" else None,
            "loss_single": float(m["loss"]), "loss_sharded": float(mm["loss"]),
            f"{key}_abs_err": loss_err, "param_max_abs_err": worst_abs,
@@ -3093,15 +3236,20 @@ def mesh_step_gate(seed, arch, mesh, device, smi):
            "grad_norm_single": float(m["grad_norm"]),
            "grad_norm_sharded": float(mm["grad_norm"]),
            "single_step_ms": single_ms, "sharded_step_ms": mesh_ms}
-    emit(row)
-    if loss_err > MESH_LOSS_TOL or worst_ratio > 1.0 or aux_err > 1e-5 \
-            or worst_grad > 1.0 or gn_err > gn_tol:
-        fail(f"{where}: {key} err {loss_err}, parameters at "
-             f"{worst_ratio} of the bound, gradients at {worst_grad}, grad "
-             f"norm err {gn_err}, aux err {aux_err}")
-    del params, got, got_m, state, mstate
+    if "mtp_ce" in m:
+        row.update(mtp_ce_single=float(m["mtp_ce"]),
+                   mtp_ce_sharded=float(mm["mtp_ce"]), mtp_ce_abs_err=mtp_err)
+    del got, got_m, want
     gc.collect()
     torch.cuda.empty_cache()
+    row["gate_s"] = time.perf_counter() - t_gate
+    emit(row)
+    if loss_err > MESH_LOSS_TOL or mtp_err > MESH_LOSS_TOL \
+            or worst_ratio > 1.0 or aux_err > 1e-5 \
+            or worst_grad > 1.0 or gn_err > gn_tol:
+        fail(f"{where}: {key} err {loss_err}, mtp err {mtp_err}, parameters "
+             f"at {worst_ratio} of the bound, gradients at {worst_grad}, grad "
+             f"norm err {gn_err}, aux err {aux_err}")
     return row
 
 
@@ -3185,6 +3333,16 @@ def mesh_compress_gate(seed, device, smi):
     return row
 
 
+def _host_waits_of(prof):
+    """The host's waits on the device in a profile (its synchronize calls,
+    `SYNC_EVENTS`, from the raw runtime events), or None where the profile
+    recorded no runtime call at all (the window's closing synchronize is
+    one)."""
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.name() in SYNC_EVENTS)
+    return n or None
+
+
 def _busy_by_card(prof) -> dict:
     """Device busy ms of a profile, by card."""
     busy = {}
@@ -3198,23 +3356,26 @@ def _busy_by_card(prof) -> dict:
     return busy
 
 
-def mesh_train_run(seed, mesh, n_layers, device, smi):
-    """deepseek-moe-16b in bf16 at its published width (``n_layers``, or
-    all), random weights from the seed, on ``mesh`` through the `Trainer`
-    (AdamW, the token stream and its drift monitor checked at every batch,
-    no checkpoint), MESH_RUN_STEPS steps and one profiled.  Gates: finite
-    loss and gradient norm, no kernel launched by a step, the monitor's
-    one `srp_hash` and one `swakde_segment_pass` a step."""
+def mesh_train_run(seed, mesh, run, device, smi):
+    """``run`` = (arch, depth, B, S, optimizer, steps): ``arch`` in bf16 at
+    its published width (``depth`` layers, or all), random weights from the
+    seed, on ``mesh`` through the `Trainer` (``optimizer``, the model's
+    published microbatches, the token stream and its drift monitor checked
+    at every batch, no checkpoint), ``steps`` steps and one profiled.
+    Gates: finite loss and gradient norm, no kernel launched by a step,
+    the monitor's one `srp_hash` and one `swakde_segment_pass` a step.
+    Each card's peak against `_reckon_mesh_bytes`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.train import trainer
-    cfg = family_config("deepseek-moe-16b", n_layers)
-    steps = MESH_RUN_STEPS + 1
-    where = f"lm_mesh run {cfg.n_layers} layers"
+    arch, n_layers, B, S, optimizer, n_steps = run
+    cfg = family_config(arch, n_layers)
+    steps = n_steps + 1
+    where = f"lm_mesh run {arch} {cfg.n_layers} layers"
     cards = _mesh_cards(mesh)
-    reckoned = _reckon_mesh_bytes(cfg, mesh)
+    reckoned = _reckon_mesh_bytes(cfg, mesh, optimizer)
     gc.collect()
     torch.cuda.empty_cache()
     for c in cards:
@@ -3241,15 +3402,17 @@ def mesh_train_run(seed, mesh, n_layers, device, smi):
             fail(f"{where}: step {len(rows) + 1} loss {loss} grad norm {gnorm}")
         rows.append({"step": len(rows) + 1, "ms": wall * 1e3, "loss": loss,
                      "grad_norm": gnorm, "moe_aux": float(m["moe_aux"]),
+                     **({"mtp_ce": float(m["mtp_ce"])} if "mtp_ce" in m
+                        else {}),
                      "profiled": last})
         return out
 
     ckpt_dir = ROOT / "build" / "lm_mesh"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=MESH_RUN_B,
-                               seq=MESH_RUN_S, seed=seed + 84)
+    dcfg = pipeline.DataConfig(vocab=cfg.vocab, batch=B, seq=S,
+                               seed=seed + 84)
     tcfg = trainer.TrainerConfig(steps=steps, ckpt_every=0,
-                                 ckpt_dir=str(ckpt_dir), optimizer="adamw",
+                                 ckpt_dir=str(ckpt_dir), optimizer=optimizer,
                                  lr=TRAIN_LR, log_every=10**9)
     t0 = time.perf_counter()
     tr = trainer.Trainer(cfg, dcfg, tcfg, mesh=mesh, log_fn=lambda s: None)
@@ -3260,17 +3423,20 @@ def mesh_train_run(seed, mesh, n_layers, device, smi):
     total_s = time.perf_counter() - t0
     peaks = {c: torch.cuda.max_memory_allocated(c) for c in cards}
     busy = _busy_by_card(prof_box["prof"])
+    waits = _host_waits_of(prof_box["prof"])
     _, n_ops, top = device_profile(prof_box.pop("prof"))
     steady = sorted(r["ms"] for r in rows[1:-1]) or [rows[-1]["ms"]]
     step_ms = steady[len(steady) // 2]
-    tokens = MESH_RUN_B * MESH_RUN_S
+    tokens = B * S
     prof_ms = rows[-1]["ms"]
     row = {"phase": "lm_mesh", "part": "train_run", "arch": cfg.arch_id,
            "nvidia_smi": smi, "mesh": dict(mesh.shape), "cards": cards,
            "layers_run": [cfg.n_layers, family_config(cfg.arch_id).n_layers],
-           "dtype": cfg.param_dtype, "B": MESH_RUN_B, "S": MESH_RUN_S,
-           "rank_rows": MESH_RUN_B // mesh.shape["data"],
-           "optimizer": "adamw", "remat": cfg.remat, "steps": rows,
+           "dtype": cfg.param_dtype, "B": B, "S": S,
+           "rank_rows": B // mesh.shape["data"],
+           "grad_microbatches": cfg.grad_microbatches,
+           "grad_accum_dtype": cfg.grad_accum_dtype,
+           "optimizer": optimizer, "remat": cfg.remat, "steps": rows,
            "step_ms_first": rows[0]["ms"], "step_ms_median": step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3),
            "ms_per_layer": step_ms / cfg.n_layers,
@@ -3279,7 +3445,7 @@ def mesh_train_run(seed, mesh, n_layers, device, smi):
            "profiled_step_ms": prof_ms,
            "busy_ms_by_card": busy,
            "busy_share_by_card": {c: v / prof_ms for c, v in busy.items()},
-           "device_ops": n_ops, "top_device_ops": top,
+           "device_ops": n_ops, "host_waits": waits, "top_device_ops": top,
            "run_s": total_s, "drift_ms": monitor.ms,
            "launches": monitor.launches,
            "monitor_code_flips": monitor.flips,
@@ -3294,10 +3460,75 @@ def mesh_train_run(seed, mesh, n_layers, device, smi):
     return row
 
 
+def mesh_four_cards_gate(seed, smi):
+    """deepseek-v3's smoke step in fp32 (`_gate_config`: MLA, the MoE
+    expert-parallel, the MTP head; one AdamW step of MESH_FOUR_B x
+    MESH_FOUR_S tokens) on cards 0..3 as data 2 x model 2, twice: bit for
+    bit; and against the same mesh on card 0 repeated: metrics within 1e-6
+    relative, gradients within 1e-4 of their largest, parameters at the
+    reference's bounds (`_steps_apart`).  Only the order in which the
+    cards' backward threads add a block's terms may differ."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adam
+    from repro_torch.parallel import param_specs
+    from repro_torch.train import train_step as ts
+    cfg = _gate_config("deepseek-v3-671b", width="smoke")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(seed + 86),
+                             "cpu")
+    tokens = torch.from_numpy(_train_tokens(cfg, MESH_FOUR_B, MESH_FOUR_S,
+                                            seed + 87))
+
+    def run(mesh):
+        opt = adam.adamw(lr=MESH_GATE_LR, warmup=1)
+        step, _ = ts.make_train_step(cfg, opt, mesh)
+        params = param_specs.shard_params(tree, mesh)
+        state = ts.TrainState(params, adam.init_on_mesh(opt, params),
+                              torch.zeros((), dtype=torch.int32,
+                                          device=mesh.devices[0]))
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        sync_all()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (param_specs.gather_params(state.params, "cpu"),
+                param_specs.gather_params(state.opt_state.m, "cpu"),
+                {k: float(v) for k, v in m.items()}, ms)
+
+    four = make_test_mesh(*MESH_SHAPE, "cuda")
+    a, b = run(four), run(four)
+    repeats = a[2] == b[2] and all(
+        torch.equal(x, y) for t, u in zip(a[:2], b[:2])
+        for (_, x), (_, y) in zip(_flatten(t), _flatten(u)))
+    one = run(make_test_mesh(*MESH_SHAPE, torch.device("cuda", 0)))
+    metric_err = max(abs(a[2][k] - v) / max(abs(v), 1e-30)
+                     for k, v in one[2].items())
+    worst_abs, worst_ratio, worst_grad, sign_free = _steps_apart(
+        a[:2], one[:2], lambda k: 1e-4)
+    row = {"phase": "lm_mesh", "part": "four_cards_gate",
+           "arch": cfg.arch_id, "width": "smoke", "nvidia_smi": smi,
+           "mesh": dict(four.shape), "cards": _mesh_cards(four),
+           "B": MESH_FOUR_B, "S": MESH_FOUR_S,
+           "repeats_bit_for_bit": repeats, "metrics_four": a[2],
+           "metrics_one_card": one[2], "metric_rel_err": metric_err,
+           "param_max_abs_err": worst_abs, "param_err_over_bound": worst_ratio,
+           "params_free_sign_over_strict_bound": sign_free,
+           "grad_err_over_bound": worst_grad, "step_ms_four": a[3],
+           "step_ms_one_card": one[3]}
+    emit(row)
+    if not repeats or metric_err > 1e-6 or worst_ratio > 1.0 \
+            or worst_grad > 1.0:
+        fail(f"lm_mesh four cards: repeats {repeats}, metrics {metric_err}, "
+             f"parameters at {worst_ratio} of the bound, gradients at "
+             f"{worst_grad}")
+    return row
+
+
 def phase_lm_mesh(seed, device, cards=1):
     """LM training on a (data, model) mesh: one card repeated as a 2 x 2
     mesh (``cards`` 1), or cards 0..3 as data 2 x model 2 (``cards`` 4).
-    Returns the drift monitor's launch counts."""
+    Returns the drift monitor's launch counts over the Trainer runs."""
     import torch
     from repro_torch.launch.mesh import make_test_mesh
     smi = subprocess.run(
@@ -3310,12 +3541,19 @@ def phase_lm_mesh(seed, device, cards=1):
         mesh = make_test_mesh(*MESH_SHAPE, "cuda")
     mesh_step_gate(seed, "qwen3-4b", mesh, device, smi)
     mesh_step_gate(seed, "deepseek-moe-16b", mesh, device, smi)
+    for arch, layers, S, width in MESH_FAMILY_GATES:
+        mesh_step_gate(seed, arch, mesh, device, smi, layers, S, width)
     mesh_moe_ep_gate(seed, mesh, device, smi)
     if cards == 1:
         mesh_compress_gate(seed, device, smi)
-    row = mesh_train_run(seed, mesh, MESH_RUN_LAYERS if cards == 1 else None,
-                         device, smi)
-    return {"launches": row["launches"]}
+    else:
+        mesh_four_cards_gate(seed, smi)
+    launches = {}
+    for run in MESH_RUNS if cards == 1 else MESH_RUNS_4:
+        row = mesh_train_run(seed, mesh, run, device, smi)
+        launches = {k: launches.get(k, 0) + v
+                    for k, v in row["launches"].items()}
+    return {"launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -5263,9 +5501,9 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     * the kernels of one operation of each fleet (and of one query block of
       each S-ANN path) run again on the inputs the fleet gave them, against
       their plain versions on the card;
-    * each kind at T = 8 (cross-checked on the CPU), RACE and SW-AKDE also
-      at T = 256: one launch of the commit kernel an operation whatever T
-      is, every tenant's row its single-sketch loop's;
+    * each kind at T = 8 (cross-checked on the CPU): one launch of the
+      commit kernel an operation, every tenant's row its single-sketch
+      loop's (the T = 256 gates are cut for time);
     * a profile window of 4 RACE and of 4 SW-AKDE fleet chunks."""
     import dataclasses
     import tempfile
@@ -5504,7 +5742,7 @@ def phase_fleet(seed, sann_run, kde_run, device, n_race=FLEET_RACE_N,
     del race_fleet, sw_fleet, fl
 
     secs_of["profile"] = lap()
-    # --- one launch an operation at T = 8 and T = 256 ---------------------
+    # --- one launch an operation at T = 8 --------------------------------
     gates = {}
     for kind, make, host, data in (("race", make_race, khost, kdata),
                                    ("swakde", make_sw, khost, kdata),
@@ -5694,18 +5932,25 @@ def phase_cluster(seed, sann_run, kde_run, device, n_sann=CLUSTER_SANN_N,
             fail(f"cluster kde K={K}: a worker's window expired")
         _same_answers(f"cluster kde K={K}", got, want)
         kept_kde[K] = {"gate": (cl.merged_state(), got)}
-        # the ingest rate over the rest of the news stream (no gate: the
-        # workers' windows expire), the short gate stream's being too short
+        # past a worker's window: the state the RPC cluster is held to
         ops.reset_launches()
-        secs_long = _cluster_feed(cl, khost[n_kde:n_long], device)
+        _cluster_feed(cl, khost[n_kde:n_kde + CLUSTER_KDE_TAIL], device)
         _add_launches(launches)
-        kept_kde[K]["end"] = (cl.merged_state(), cl.query(kqs))
+        if max(w.steps for w in cl.workers) < CLUSTER_KDE_WINDOW // K:
+            fail(f"cluster kde K={K}: no worker's window expired in the tail")
+        kept_kde[K]["expired"] = (cl.merged_state(), cl.query(kqs))
+        # the ingest rate over the rest of the news stream (no gate), the
+        # short gate stream's being too short
+        n_rest = n_kde + CLUSTER_KDE_TAIL
+        ops.reset_launches()
+        secs_long = _cluster_feed(cl, khost[n_rest:n_long], device)
+        _add_launches(launches)
         rows.append({"K": K, "points": n_kde, "worker_window":
                      CLUSTER_KDE_WINDOW // K, "eh_eps": 0.01,
                      "ingest_s_gate_stream": secs,
                      "points_per_s_gate_stream": n_kde / secs,
-                     "points_long": n_long - n_kde, "ingest_s_long": secs_long,
-                     "points_per_s": (n_long - n_kde) / secs_long,
+                     "points_long": n_long - n_rest, "ingest_s_long": secs_long,
+                     "points_per_s": (n_long - n_rest) / secs_long,
                      "merge_ms": merge_ms,
                      "queries_per_s": q_rate,
                      "answers_equal_single_service": True,
@@ -5886,8 +6131,9 @@ def phase_rpc_cluster(cluster_run, device, K=RPC_K, sann_nmax=RPC_SANN_NMAX):
     * `RPCClusterRACEService` at K = 4 (news shape, SRP): merged counters
       and answers equal the in-process cluster's at the same K;
     * `RPCClusterKDEService` at K = 4 (eps 0.01, worker windows 65 536 /
-      K): the gate stream, then the rest, each equal to the in-process
-      cluster's state and answers;
+      K): the gate stream, then CLUSTER_KDE_TAIL points past a worker's
+      window (the rest of the news stream cut for time), each equal to
+      the in-process cluster's state and answers;
     * `RPCClusterRetrievalService` at K = 4, SIFT shape, n_max 250 000 a
       worker (a snapshot must fit the protocol's 256 MiB frame): state,
       (c, r) and top-50 ids equal the in-process cluster's at the same
@@ -5938,35 +6184,40 @@ def phase_rpc_cluster(cluster_run, device, K=RPC_K, sann_nmax=RPC_SANN_NMAX):
                    "queries_per_s": q_rate, "equals_inprocess_cluster": True}
 
     # --- SW-AKDE at the news shape, eps 0.01, K = 4 -----------------------
-    n_kde, n_long = cluster_run["n_kde"], khost.shape[0]
+    n_kde = cluster_run["n_kde"]
     kcfg = dataclasses.replace(cluster_run["kcfg"],
                                window=CLUSTER_KDE_WINDOW // K)
+    # the gate stream, then a tail past a worker's window; the rest of the
+    # news stream is cut for time (the in-process cluster phase measures
+    # its ingest rate)
+    tail = khost[n_kde:n_kde + CLUSTER_KDE_TAIL]
     with _rpc_open(lambda: rpc.RPCClusterKDEService(
             kcfg, num_workers=K, merge_every=RPC_MERGE_EVERY, rpc=rc,
             device=device)) as (cl, start_s):
         ops.reset_launches()
         secs = _cluster_feed(cl, khost[:n_kde], device)
-        want_state, want = cluster_run["kde"][K]["gate"]
-        _same_state(f"rpc kde K={K} gate stream", inprocess=want_state,
-                    rpc=cl.merged_state())
-        _same_answers(f"rpc kde K={K} gate stream", cl.query(kqs), want)
-        secs_long = _cluster_feed(cl, khost[n_kde:n_long], device)
         pull_ms, fold_ms = _timed_rpc_merge(cl, device)
         got = cl.query(kqs)
         q_rate = _timed_queries(cl.query, kqs, device)
+        want_state, want = cluster_run["kde"][K]["gate"]
+        _same_state(f"rpc kde K={K} gate stream", inprocess=want_state,
+                    rpc=cl.merged_state())
+        _same_answers(f"rpc kde K={K} gate stream", got, want)
+        secs_tail = _cluster_feed(cl, tail, device)
         _add_launches(coord)
         _worker_launches(cl, in_workers, ("srp_hash", "swakde_segment_pass"),
                          device)
-        want_state, want = cluster_run["kde"][K]["end"]
-        _same_state(f"rpc kde K={K}", inprocess=want_state,
+        want_state, want = cluster_run["kde"][K]["expired"]
+        _same_state(f"rpc kde K={K} expired", inprocess=want_state,
                     rpc=cl.merged_state())
-        _same_answers(f"rpc kde K={K}", got, want)
+        _same_answers(f"rpc kde K={K} expired", cl.query(kqs), want)
         snap_mb = _state_bytes(cl._template.state) / 1e6
     out["kde"] = {"K": K, "worker_window": CLUSTER_KDE_WINDOW // K,
                   "eh_eps": kcfg.eh_eps, "start_s": start_s,
                   "points_gate": n_kde, "ingest_s_gate": secs,
-                  "points_long": n_long - n_kde, "ingest_s_long": secs_long,
-                  "points_per_s": (n_long - n_kde) / secs_long,
+                  "points_per_s_gate_stream": n_kde / secs,
+                  "points_tail": len(tail), "ingest_s_tail": secs_tail,
+                  "points_per_s_tail": len(tail) / secs_tail,
                   "snapshot_mb_per_worker": snap_mb,
                   "snapshot_pull_ms": pull_ms, "merge_fold_ms": fold_ms,
                   "queries_per_s": q_rate, "equals_inprocess_cluster": True}
@@ -6136,11 +6387,13 @@ def phase_sharding(seed, sann_run, kde_run, srp_run, device, mesh_devices):
     or K cards) against one device, at full width: RACE and SW-AKDE split
     by rows (p-stable eps 0.1 and SRP eps 0.01, news shape), S-ANN by
     tables (SIFT shape, the point store replicated), merged; the three
-    services on the mesh, durable; fleets split by tenant.  Every state
-    equals one device's bit for bit, every answer one device's, snapshots
+    services on the mesh, durable; fleets split by tenant (RACE's and
+    SW-AKDE's each tenant's row also against its single-sketch loop).
+    Every state equals one device's bit for bit, every answer one device's, snapshots
     byte for byte, and each commit kernel launches once a shard a chunk."""
     import dataclasses
     import tempfile
+    import types
     import numpy as np
     import torch
     from repro_torch.core import fleet, lsh, prng, race, sann, swakde
@@ -6534,6 +6787,17 @@ def phase_sharding(seed, sann_run, kde_run, srp_run, device, mesh_devices):
         secs1 = time.perf_counter() - t0
         _add_launches(launches)
         same(f"fleet {kind}", ss.gather_fleet(st, ctx), one)
+        if kind != "sann":
+            # every tenant's row against its single-sketch loop at this T
+            blocks = [(i, i + CHUNK) for i in range(0, nf, CHUNK)]
+            oracle = _fleet_oracle(
+                kind, types.SimpleNamespace(empty_state=empty1,
+                                            sketch_cfg=fcfg),
+                fdata, _fleet_codes(p1, fdata, blocks), tids_h, blocks,
+                device)
+            _oracle_check(f"{kind} T={T} (sharding)", types.SimpleNamespace(
+                peek_state=lambda t: fleet.fleet_row(one, t)), T, oracle)
+            ops.reset_launches()
         edge = {}
         if kind == "swakde":
             edge["tenants_expired"] = int((one.t > fcfg.window).sum())

@@ -1,8 +1,8 @@
 """Architecture registry: ``arch_id`` → ``ModelConfig``.
 
 Lists the reference's ten architectures.  Every family decodes
-(``serve/serve_step.py``); ``models.model.forward``, and with it training,
-takes only the dense family (``ROADMAP.md``, queue 1).
+(``serve/serve_step.py``) and trains (``models.model.forward``,
+``train/train_step.py``), on one device and on a ``(data, model)`` mesh.
 """
 from __future__ import annotations
 

@@ -28,15 +28,23 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.util import fp32_reciprocal, mean_last
+from ..core.util import fp32_reciprocal
 from ..parallel import sharding
 from .flash import flash_attention
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+             sq: torch.Tensor = None, n: int = None) -> torch.Tensor:
+    """RMSNorm of ``x``'s rows.  Where ``x`` is a block of columns of rows
+    of ``n`` (one rank's heads), ``sq`` is the float32 sum of squares over
+    the whole rows (the ranks' sums added) and ``w`` the block's weights;
+    with no ``sq``, the rows are whole."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(mean_last(x * x)[..., None] + eps)
+    if sq is None:
+        sq, n = (x * x).sum(-1), x.shape[-1]
+    var = sq * sq.new_full((), 1.0 / n)               # `core.util.mean_last`
+    x = x * torch.rsqrt(var + eps)[..., None]
     return (x * (1.0 + w.float())).to(dt)
 
 
@@ -218,18 +226,30 @@ def _model_split(leaf, dim: int) -> bool:
     return leaf.spec[dim % len(leaf.spec)] == "model"
 
 
+def _cross_kv(p, enc: torch.Tensor, n_kv: int, head_dim: int) -> tuple:
+    """The keys and values of cross-attention over ``enc (B, Te, d)``
+    from ``p``'s ``wk`` / ``wv`` (their columns of ``n_kv`` heads)."""
+    B, Te, _ = enc.shape
+    return ((enc @ p["wk"]).reshape(B, Te, n_kv, head_dim),
+            (enc @ p["wv"]).reshape(B, Te, n_kv, head_dim))
+
+
 def attention_ranks(params, hs: list, positions: list, mesh, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
                     rope_theta: float, qk_norm: bool = False,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, norm_eps: float = 1e-6) -> list:
+                    softcap: float = 0.0, norm_eps: float = 1e-6,
+                    cross: list | None = None) -> list:
     """`attention` of one activation a rank: the heads split over
     ``model`` where ``wq`` and ``wo`` split on whole heads, the local
     query heads' keys and values from ``wk`` / ``wv``'s own blocks when
     those fall on whole heads, else from their gathered columns of the
     heads needed; otherwise every weight gathered and every head computed
-    on every rank.  With no ``mesh``, `attention` of ``hs``' one
-    activation on one device."""
+    on every rank.  ``cross`` (one encoder output a rank, its rows of the
+    batch) makes it the decoder's cross-attention: each rank's keys and
+    values are its encoder rows through its heads' columns of ``wk`` /
+    ``wv`` (no RoPE, not causal).  With no ``mesh``, `attention` of
+    ``hs``' one activation on one device."""
     M = mesh.shape.get("model", 1) if mesh is not None else 1
     H, Hkv, dh = n_heads, n_kv_heads, head_dim
     g = H // Hkv
@@ -251,8 +271,9 @@ def attention_ranks(params, hs: list, positions: list, mesh, *,
         outs = []
         for r, h in enumerate(hs):
             p = {k: v[r] for k, v in {**full, **norms}.items()}
+            ckv = _cross_kv(p, cross[r], Hkv, dh) if cross else None
             outs.append(attention(p, h, positions[r], n_heads=H,
-                                  n_kv_heads=Hkv, **kw)[0])
+                                  n_kv_heads=Hkv, cross_kv=ckv, **kw)[0])
         return outs
     local = {k: params[k].gathered(keep=("model",)) for k in ("wq", "wo")}
     kv = {k: params[k].gathered(keep=("model",) if kv_local else ())
@@ -269,8 +290,9 @@ def attention_ranks(params, hs: list, positions: list, mesh, *,
             n_kv = hi - lo
             p["wk"] = kv["wk"][r][:, lo * dh:hi * dh]
             p["wv"] = kv["wv"][r][:, lo * dh:hi * dh]
+        ckv = _cross_kv(p, cross[r], n_kv, dh) if cross else None
         parts.append(attention(p, h, positions[r], n_heads=Hl,
-                               n_kv_heads=n_kv, **kw)[0])
+                               n_kv_heads=n_kv, cross_kv=ckv, **kw)[0])
     return sharding.psum(parts, mesh, "model")
 
 

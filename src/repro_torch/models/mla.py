@@ -7,6 +7,14 @@ per-head keys and values from the latent and runs the flash attention with
 ``dqk = dh + r`` and ``dv = dh``; the decode (``serve/serve_step.py``,
 ``_mla_block``) scores queries against the latent cache directly
 (the *absorbed* form).
+
+On a ``(data, model)`` mesh (`mla_attention_ranks`) the training attention
+splits its heads over ``model``, as the reference constrains ``q`` on
+``heads``: each rank computes the latent and the rotary key whole (``w_dkv``
+and ``w_dq`` are FSDP only), its heads' queries, keys and values from its
+column blocks of ``w_uq`` (``w_q``), ``w_uk`` and ``w_uv``, the flash
+attention over them, and its row block of ``w_o``; one sum over ``model``
+follows.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import math
 
 import torch
 
+from ..parallel import sharding
 from . import layers
 from .flash import flash_attention
 
@@ -94,3 +103,34 @@ def mla_attention(params, x, positions, *, n_heads: int, head_dim: int,
     out = flash_attention(q, k, v, causal=True)     # dv = dh < dqk = dh + r
     out = out.reshape(B, S, H * dh) @ params["w_o"]
     return out, (c, kr)
+
+
+def mla_attention_ranks(params, hs: list, positions: list, mesh, *,
+                        n_heads: int, head_dim: int, rope_dim: int,
+                        rope_theta: float, norm_eps: float = 1e-6) -> list:
+    """`mla_attention` of one activation a rank: the heads split over
+    ``model`` where ``w_uq`` (or ``w_q``), ``w_uk`` and ``w_uv`` split
+    their columns and ``w_o`` its rows on whole heads over ``model`` alone,
+    the rank's output block of ``w_o`` summed over ``model``; otherwise
+    every weight gathered and every head computed on every rank (with no
+    ``mesh``, `mla_attention` on one device)."""
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    cols = ("w_uq" if "w_uq" in params else "w_q", "w_uk", "w_uv")
+    tp = (M > 1 and n_heads % M == 0
+          and all(layers._model_split(params[k], -1) for k in cols)
+          and layers._model_split(params["w_o"], -2))
+    kw = dict(head_dim=head_dim, rope_dim=rope_dim, rope_theta=rope_theta,
+              norm_eps=norm_eps)
+    if not tp:
+        w = layers.gathered_tree(params)
+        return [mla_attention(w[r], h, positions[r], n_heads=n_heads, **kw)[0]
+                for r, h in enumerate(hs)]
+    local = {k: params[k].gathered(keep=("model",)) for k in cols + ("w_o",)}
+    whole = {k: layers.rank_leaves(v, len(hs)) for k, v in params.items()
+             if k not in local}
+    parts = []
+    for r, h in enumerate(hs):
+        p = {k: v[r] for k, v in {**whole, **local}.items()}
+        parts.append(mla_attention(p, h, positions[r], n_heads=n_heads // M,
+                                   **kw)[0])
+    return sharding.psum(parts, mesh, "model")

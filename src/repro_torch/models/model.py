@@ -25,16 +25,21 @@ the dense, moe and encoder-decoder stacks, a group (its Mamba2 layers and
 the shared block) of the hybrid, an (mLSTM, sLSTM + FFN) pair of the
 xLSTM.
 
-On a ``(data, model)`` mesh (``ctx`` with a mesh; `forward_ranks`) the
+Every family's forward is one path over a list of activations, one a
+rank (`forward_ranks`): on one device the list holds the whole batch as its
+one rank.  On a ``(data, model)`` mesh (``ctx`` with a mesh) the
 parameters are a tree of `parallel.sharding.Sharded` leaves placed by
-`parallel.param_specs`, and the batch splits its rows over the data axes.
-Each rank runs its data shard; attention and the MLPs are tensor-parallel
-over ``model`` (`layers.attention_ranks`, `layers.mlp_ranks`), the MoE
-layers expert-parallel (`moe.moe_ranks`), and each layer gathers its FSDP
-weights inside the layer (rematerialised with it).  The residual stream
-stays replicated over ``model``: the reference's ``seq_sp`` constraint
-splits it over the sequence there, a layout only.  The dense and moe (GQA)
-families run on a mesh; the others raise.
+`parallel.param_specs`, and every input of the batch (``tokens``,
+``frames``, ``patches``) splits its rows over the data axes.  Each rank
+runs its data shard; attention (self, causal or not, and the decoder's
+cross-attention) and the MLPs are tensor-parallel over ``model``
+(`layers.attention_ranks`, `layers.mlp_ranks`), MLA, Mamba2 and the mLSTM
+split their heads over ``model`` (`mla.mla_attention_ranks`,
+`ssm.mamba2_ranks`, `xlstm.mlstm_ranks`), the MoE layers are
+expert-parallel (`moe.moe_ranks`), and each layer gathers its FSDP weights
+inside the layer (rematerialised with it).  The residual stream stays
+replicated over ``model``: the reference's ``seq_sp`` constraint splits it
+over the sequence there, a layout only.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.util import fp32_reciprocal, resolve_device
-from ..parallel.sharding import NULL_CTX, Sharded, ShardingCtx
+from ..parallel import param_specs
+from ..parallel.sharding import NULL_CTX, Sharded, ShardingCtx, shard_tensor
 from . import layers, mla, moe, ssm, xlstm
 from .remat import remat_call
 
@@ -265,16 +271,16 @@ def _dense_block(p, xs: list, positions: list, window: int,
 
 def _moe_block(p, xs: list, positions: list, cfg: ModelConfig, mesh=None):
     """A MoE block over a list of activations (as `_dense_block`; MLA
-    attention on one device only) → (activations, aux loss)."""
+    attention split by heads, `mla.mla_attention_ranks`) → (activations,
+    aux loss)."""
     ln = {k: layers.rank_leaves(p[k], len(xs)) for k in ("ln1", "ln2")}
     hs = [layers.rms_norm(x, ln["ln1"][r], cfg.norm_eps)
           for r, x in enumerate(xs)]
     if cfg.use_mla:
-        (h,), (pos,) = hs, positions
-        a = [mla.mla_attention(
-            p["attn"], h, pos, n_heads=cfg.n_heads,
+        a = mla.mla_attention_ranks(
+            p["attn"], hs, positions, mesh, n_heads=cfg.n_heads,
             head_dim=cfg.resolved_head_dim, rope_dim=cfg.mla_rope_dim,
-            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)[0]]
+            rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
     else:
         a = layers.attention_ranks(
             p["attn"], hs, positions, mesh, n_heads=cfg.n_heads,
@@ -332,33 +338,44 @@ def _lm_stack(tree, cfg: ModelConfig, xs: list, positions: list,
     return xs, aux
 
 
-def _hybrid_group(shared, group, x, positions, cfg: ModelConfig):
-    """One hybrid group: its Mamba2 layers in turn, then the shared
+def _hybrid_group(shared, group, xs: list, positions: list, cfg: ModelConfig,
+                  mesh=None) -> list:
+    """One hybrid group over a list of activations: its Mamba2 layers in
+    turn (split by heads on a mesh, `ssm.mamba2_ranks`), then the shared
     attention block (global)."""
     for e in range(cfg.attn_every):
         p = layer_params(group, e)
-        h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-        o, _ = ssm.mamba2(p["mixer"], h, state=cfg.ssm_state,
-                          conv=cfg.ssm_conv, expand=cfg.ssm_expand,
-                          head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
-                          norm_eps=cfg.norm_eps)
-        x = x + o
-    return _dense_block(shared, [x], [positions], 0, cfg)[0]
+        ln = layers.rank_leaves(p["ln"], len(xs))
+        hs = [layers.rms_norm(x, ln[r], cfg.norm_eps) for r, x in enumerate(xs)]
+        o = ssm.mamba2_ranks(p["mixer"], hs, mesh, state=cfg.ssm_state,
+                             conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                             head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                             norm_eps=cfg.norm_eps)
+        xs = [x + t for x, t in zip(xs, o)]
+    return _dense_block(shared, xs, positions, 0, cfg, mesh)
 
 
-def _xlstm_pair(ps, x, cfg: ModelConfig):
-    """An (mLSTM, sLSTM + gated FFN) pair; ``ps`` is the pair's two trees."""
+def _xlstm_pair(ps, xs: list, cfg: ModelConfig, mesh=None) -> list:
+    """An (mLSTM, sLSTM + gated FFN) pair over a list of activations;
+    ``ps`` is the pair's two trees.  On a mesh the mLSTM splits by heads
+    (`xlstm.mlstm_ranks`), the sLSTM runs whole on every rank and the FFN
+    is tensor-parallel (`layers.mlp_ranks`)."""
     pm, psl = ps
-    h = layers.rms_norm(x, pm["ln"], cfg.norm_eps)
-    o, _ = xlstm.mlstm(pm["mixer"], h, n_heads=cfg.n_heads,
-                       norm_eps=cfg.norm_eps)
-    x = x + o
-    h = layers.rms_norm(x, psl["ln"], cfg.norm_eps)
-    o, _ = xlstm.slstm(psl["mixer"], h, n_heads=cfg.n_heads,
-                       norm_eps=cfg.norm_eps)
-    x = x + o
-    h = layers.rms_norm(x, psl["ln_ffn"], cfg.norm_eps)
-    return x + layers.mlp(psl["ffn"], h)
+    n = len(xs)
+    ln = {k: layers.rank_leaves(psl[k], n) for k in ("ln", "ln_ffn")}
+    ln_m = layers.rank_leaves(pm["ln"], n)
+    hs = [layers.rms_norm(x, ln_m[r], cfg.norm_eps) for r, x in enumerate(xs)]
+    o = xlstm.mlstm_ranks(pm["mixer"], hs, mesh, n_heads=cfg.n_heads,
+                          norm_eps=cfg.norm_eps)
+    xs = [x + t for x, t in zip(xs, o)]
+    hs = [layers.rms_norm(x, ln["ln"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    o = xlstm.slstm_ranks(psl["mixer"], hs, n_heads=cfg.n_heads,
+                          norm_eps=cfg.norm_eps)
+    xs = [x + t for x, t in zip(xs, o)]
+    hs = [layers.rms_norm(x, ln["ln_ffn"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    return [x + t for x, t in zip(xs, layers.mlp_ranks(psl["ffn"], hs, mesh))]
 
 
 def forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx = NULL_CTX,
@@ -375,184 +392,192 @@ def forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx = NULL_CTX,
     tree = params.to_dict() if isinstance(params, ParamTree) else params
     if ctx.mesh is not None:
         return _forward_mesh(tree, cfg, batch, ctx, return_hidden)
-    if cfg.family == "encdec":
-        return _forward_encdec(tree, cfg, batch, return_hidden)
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    x = layers.embed(tree["embedding"], tokens)
-    if cfg.scale_embeddings:
-        # the reference rounds sqrt(d_model) to the activation dtype first
-        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
-    if cfg.family == "vlm":
-        proj = tree["patch_proj"]
-        dt = torch.promote_types(batch["patches"].dtype, proj.dtype)
-        patches = batch["patches"].to(dt) @ proj.to(dt)
-        x = torch.cat([patches.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-
-    if cfg.family in ("dense", "vlm", "moe"):
-        (x,), moe_aux = _lm_stack(tree, cfg, [x], [positions], remat)
-        if moe_aux is not None:
-            aux = moe_aux
-    elif cfg.family == "hybrid":
-        (x,), _ = _run_stack(lambda g, xs: [_hybrid_group(
-            tree["shared_attn"], g, xs[0], positions, cfg)],
-            tree["mamba_blocks"], cfg.n_layers // cfg.attn_every, [x], remat)
-    elif cfg.family == "ssm":
-        n = cfg.n_layers // 2
-        pairs = [(layer_params(tree["mlstm_blocks"], i),
-                  layer_params(tree["slstm_blocks"], i)) for i in range(n)]
-        (x,), _ = _run_stack(lambda ps, xs: [_xlstm_pair(ps, xs[0], cfg)],
-                             pairs, n, [x], remat)
-    else:
-        raise ValueError(cfg.family)
-
-    x = layers.rms_norm(x, tree["ln_f"], cfg.norm_eps)
-    out_aux = {"moe_aux": aux}
-    mtp_hidden = None
-    if cfg.family == "moe" and cfg.mtp_depth and "mtp" in tree:
-        mtp_hidden = _mtp_head(tree, cfg, x, tokens, positions)
-    if cfg.family == "vlm":
-        x = x[:, batch["patches"].shape[1]:]    # text positions only
+    (x,), aux = forward_ranks(tree, cfg, {k: [v] for k, v in batch.items()})
+    if aux["moe_aux"] is None:
+        aux["moe_aux"] = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "mtp_hidden" in aux:
+        aux["mtp_hidden"] = aux["mtp_hidden"][0]
     if return_hidden:
-        if mtp_hidden is not None:
-            out_aux["mtp_hidden"] = mtp_hidden
-        return x, out_aux
-    logits = layers.unembed(tree["embedding"], x, cfg.final_softcap)
-    if mtp_hidden is not None:
-        out_aux["mtp_logits"] = layers.unembed(tree["embedding"], mtp_hidden,
-                                               cfg.final_softcap)
-    return logits, out_aux
+        return x, aux
+    out_aux = {"moe_aux": aux["moe_aux"]}
+    if "mtp_hidden" in aux:
+        out_aux["mtp_logits"] = layers.unembed(
+            tree["embedding"], aux["mtp_hidden"], cfg.final_softcap)
+    return layers.unembed(tree["embedding"], x, cfg.final_softcap), out_aux
 
 
-MESH_ITEM = "ROADMAP.md, queue 1, item 8"
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise for a family that does not run on a mesh yet: only the dense
-    and the moe (GQA) families do."""
-    if cfg.family == "dense" or (cfg.family == "moe" and not cfg.use_mla
-                                 and not cfg.mtp_depth):
-        return
-    what = ("moe with MLA" if cfg.use_mla else "moe with an MTP head") \
-        if cfg.family == "moe" else cfg.family
-    raise ValueError(f"{cfg.arch_id}: the {what} family does not run on a "
-                     f"mesh yet ({MESH_ITEM}: the other families on a mesh)")
-
-
-def forward_ranks(tree, cfg: ModelConfig, tokens: list, mesh):
-    """The mesh forward on one token block a rank (rank r's rows of the
-    batch) → (one final normed hidden state a rank, the MoE aux on the
-    mesh's first device, or None)."""
-    check_mesh_family(cfg)
+def forward_ranks(tree, cfg: ModelConfig, batch: dict, mesh=None):
+    """The forward of one block of each input a rank (``batch[k][r]``, rank
+    r's rows of ``tokens`` and of ``patches`` or ``frames``; with no
+    ``mesh``, one device's whole batch as its one rank) → (one final normed
+    hidden state a rank, text positions only for vlm; ``{"moe_aux": the
+    scaled MoE aux on the first rank's device, or None}``, with
+    ``"mtp_hidden"`` (one a rank) for a model with an MTP head)."""
+    if mesh is not None and not isinstance(tree["ln_f"], Sharded):
+        raise ValueError("forward on a mesh: place the weights with "
+                         "param_specs.shard_params")
+    tokens = batch["tokens"]
+    remat = cfg.remat and torch.is_grad_enabled()
+    if cfg.family == "encdec":
+        return _forward_encdec(tree, cfg, batch, remat, mesh), {"moe_aux": None}
     xs = layers.embed_ranks(tree["embedding"], tokens)
     if cfg.scale_embeddings:
         # the reference rounds sqrt(d_model) to the activation dtype first
         xs = [x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
               for x in xs]
-    positions = [torch.arange(t.shape[1], dtype=torch.int32,
-                              device=t.device).expand(t.shape)
-                 for t in tokens]
-    xs, aux = _lm_stack(tree, cfg, xs, positions,
-                        cfg.remat and torch.is_grad_enabled(), mesh)
-    ln_f = tree["ln_f"].gathered()
+    n_patches = 0
+    if cfg.family == "vlm":
+        proj = layers.rank_leaves(tree["patch_proj"], len(xs))
+        n_patches = batch["patches"][0].shape[1]
+        for r, (pt, x) in enumerate(zip(batch["patches"], xs)):
+            dt = torch.promote_types(pt.dtype, proj[r].dtype)
+            xs[r] = torch.cat([(pt.to(dt) @ proj[r].to(dt)).to(x.dtype), x],
+                              dim=1)
+    positions = [torch.arange(x.shape[1], dtype=torch.int32,
+                              device=x.device).expand(x.shape[:2])
+                 for x in xs]
+    aux = None
+    if cfg.family in ("dense", "vlm", "moe"):
+        xs, aux = _lm_stack(tree, cfg, xs, positions, remat, mesh)
+    elif cfg.family == "hybrid":
+        xs, _ = _run_stack(lambda g, xs: _hybrid_group(
+            tree["shared_attn"], g, xs, positions, cfg, mesh),
+            tree["mamba_blocks"], cfg.n_layers // cfg.attn_every, xs, remat)
+    elif cfg.family == "ssm":
+        n = cfg.n_layers // 2
+        pairs = [(layer_params(tree["mlstm_blocks"], i),
+                  layer_params(tree["slstm_blocks"], i)) for i in range(n)]
+        xs, _ = _run_stack(lambda ps, xs: _xlstm_pair(ps, xs, cfg, mesh),
+                           pairs, n, xs, remat)
+    else:
+        raise ValueError(cfg.family)
+    ln_f = layers.rank_leaves(tree["ln_f"], len(xs))
     xs = [layers.rms_norm(x, ln_f[r], cfg.norm_eps) for r, x in enumerate(xs)]
-    return xs, aux
+    out_aux = {"moe_aux": aux}
+    if cfg.family == "moe" and cfg.mtp_depth and "mtp" in tree:
+        out_aux["mtp_hidden"] = _mtp_head(tree, cfg, xs, tokens, positions,
+                                          mesh)
+    return [x[:, n_patches:] for x in xs], out_aux
 
 
 def _forward_mesh(tree, cfg: ModelConfig, batch: dict, ctx: ShardingCtx,
                   return_hidden: bool):
     mesh = ctx.mesh
-    tokens = batch["tokens"]
-    if not isinstance(tokens, Sharded):
-        tokens = ctx.constrain(tokens, "batch", None)
-    xs, aux = forward_ranks(tree, cfg, tokens.shards, mesh)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
-    B, S = tokens.shape
+    batch = shard_batch(batch, mesh)
+    xs, aux = forward_ranks(tree, cfg, {k: v.shards for k, v in batch.items()},
+                            mesh)
+    if aux["moe_aux"] is None:
+        aux["moe_aux"] = torch.zeros((), dtype=torch.float32,
+                                     device=mesh.devices[0])
+    B, S = batch["tokens"].shape
     spec = ctx.spec("batch", None, None)
+    mtp = aux.pop("mtp_hidden", None)
     if return_hidden:
-        return Sharded(xs, spec, mesh, (B, S, cfg.d_model)), {"moe_aux": aux}
+        hidden = lambda hs: Sharded(hs, spec, mesh, (B, S, cfg.d_model))
+        if mtp is not None:
+            aux["mtp_hidden"] = hidden(mtp)
+        return hidden(xs), aux
     w = layers.unembed_weights(tree["embedding"])
-    logits = [layers.unembed(w[r], x, cfg.final_softcap)
-              for r, x in enumerate(xs)]
-    logits = Sharded(logits, spec, mesh, (B, S, cfg.vocab))
-    return ctx.constrain(logits, "batch", None, "vocab"), {"moe_aux": aux}
+
+    def logits(hs):
+        out = [layers.unembed(w[r], h, cfg.final_softcap)
+               for r, h in enumerate(hs)]
+        return ctx.constrain(Sharded(out, spec, mesh, (B, S, cfg.vocab)),
+                             "batch", None, "vocab")
+    if mtp is not None:
+        aux["mtp_logits"] = logits(mtp)
+    return logits(xs), aux
 
 
-def _mtp_head(tree, cfg: ModelConfig, h_final, tokens, positions):
-    """Depth-1 multi-token prediction (deepseek-v3): h_t joined with the
-    embedding of token t+1, projected, through one dense block → hidden
-    states that predict token t+2 through the shared unembedding."""
+def shard_batch(batch: dict, mesh) -> dict:
+    """Every input of ``batch`` split over the mesh's batch axes
+    (`param_specs.batch_shardings`); an input already `Sharded` stays as
+    it is."""
+    specs = param_specs.batch_shardings(
+        {k: v for k, v in batch.items() if not isinstance(v, Sharded)}, mesh)
+    return {k: v if isinstance(v, Sharded) else shard_tensor(v, specs[k], mesh)
+            for k, v in batch.items()}
+
+
+def _mtp_head(tree, cfg: ModelConfig, hs: list, tokens: list, positions: list,
+              mesh=None) -> list:
+    """Depth-1 multi-token prediction (deepseek-v3), one final hidden state
+    a rank: h_t joined with the embedding of token t+1 (each rank's own
+    rows rolled), projected, through one dense block → hidden states that
+    predict token t+2 through the shared unembedding."""
     p = tree["mtp"]
-    emb_next = layers.embed(tree["embedding"], torch.roll(tokens, -1, 1))
-    h = torch.cat([layers.rms_norm(h_final, p["ln"], cfg.norm_eps),
-                   emb_next.to(h_final.dtype)], dim=-1)
-    h = h @ p["proj"]
-    return _dense_block(p["block"], [h], [positions], 0, cfg)[0]
+    n = len(hs)
+    ln, proj = (layers.rank_leaves(p[k], n) for k in ("ln", "proj"))
+    emb_next = layers.embed_ranks(tree["embedding"],
+                                  [torch.roll(t, -1, 1) for t in tokens])
+    xs = [torch.cat([layers.rms_norm(h, ln[r], cfg.norm_eps),
+                     emb_next[r].to(h.dtype)], dim=-1) @ proj[r]
+          for r, h in enumerate(hs)]
+    return _dense_block(p["block"], xs, positions, 0, cfg, mesh)
 
 
-def _enc_block(p, x, positions, cfg: ModelConfig):
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = layers.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.resolved_head_dim, rope_theta=0.0,
-                            causal=False, norm_eps=cfg.norm_eps)
-    x = x + a
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + layers.mlp(p["mlp"], h, act=layers.gelu_tanh)
+def _enc_block(p, xs: list, positions: list, cfg: ModelConfig, mesh=None):
+    ln = {k: layers.rank_leaves(p[k], len(xs)) for k in ("ln1", "ln2")}
+    hs = [layers.rms_norm(x, ln["ln1"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    a = layers.attention_ranks(p["attn"], hs, positions, mesh,
+                               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                               head_dim=cfg.resolved_head_dim, rope_theta=0.0,
+                               causal=False, norm_eps=cfg.norm_eps)
+    xs = [x + t for x, t in zip(xs, a)]
+    hs = [layers.rms_norm(x, ln["ln2"][r], cfg.norm_eps)
+          for r, x in enumerate(xs)]
+    m = layers.mlp_ranks(p["mlp"], hs, mesh, act=layers.gelu_tanh)
+    return [x + t for x, t in zip(xs, m)]
 
 
-def _dec_block(p, y, enc, positions, cfg: ModelConfig):
-    B, Te, _ = enc.shape
-    Hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
-    h = layers.rms_norm(y, p["ln1"], cfg.norm_eps)
-    a, _ = layers.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv_heads=Hkv, head_dim=dh, rope_theta=0.0,
-                            causal=True, norm_eps=cfg.norm_eps)
-    y = y + a
-    h = layers.rms_norm(y, p["ln_x"], cfg.norm_eps)
-    kx = (enc @ p["xattn"]["wk"]).reshape(B, Te, Hkv, dh)
-    vx = (enc @ p["xattn"]["wv"]).reshape(B, Te, Hkv, dh)
-    a, _ = layers.attention(p["xattn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv_heads=Hkv, head_dim=dh, rope_theta=0.0,
-                            causal=False, norm_eps=cfg.norm_eps,
-                            cross_kv=(kx, vx))
-    y = y + a
-    h = layers.rms_norm(y, p["ln2"], cfg.norm_eps)
-    return y + layers.mlp(p["mlp"], h, act=layers.gelu_tanh)
+def _dec_block(p, ys: list, enc: list, positions: list, cfg: ModelConfig,
+               mesh=None):
+    ln = {k: layers.rank_leaves(p[k], len(ys)) for k in ("ln1", "ln_x", "ln2")}
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.resolved_head_dim, rope_theta=0.0,
+              norm_eps=cfg.norm_eps)
+    hs = [layers.rms_norm(y, ln["ln1"][r], cfg.norm_eps)
+          for r, y in enumerate(ys)]
+    a = layers.attention_ranks(p["attn"], hs, positions, mesh, causal=True,
+                               **kw)
+    ys = [y + t for y, t in zip(ys, a)]
+    hs = [layers.rms_norm(y, ln["ln_x"][r], cfg.norm_eps)
+          for r, y in enumerate(ys)]
+    a = layers.attention_ranks(p["xattn"], hs, positions, mesh, causal=False,
+                               cross=enc, **kw)
+    ys = [y + t for y, t in zip(ys, a)]
+    hs = [layers.rms_norm(y, ln["ln2"][r], cfg.norm_eps)
+          for r, y in enumerate(ys)]
+    m = layers.mlp_ranks(p["mlp"], hs, mesh, act=layers.gelu_tanh)
+    return [y + t for y, t in zip(ys, m)]
 
 
-def _forward_encdec(tree, cfg: ModelConfig, batch: dict, return_hidden: bool):
-    """Whisper: the non-causal encoder over the stub frontend's frames (no
-    RoPE; sinusoid positions; ``enc_ln_f``), then the decoder's causal
-    self-attention, cross-attention to the encoder and ungated gelu MLP."""
+def _forward_encdec(tree, cfg: ModelConfig, batch: dict, remat: bool,
+                    mesh=None) -> list:
+    """Whisper over one block of ``frames`` and ``tokens`` a rank: the
+    non-causal encoder over the stub frontend's frames (no RoPE; sinusoid
+    positions; ``enc_ln_f``), then the decoder's causal self-attention,
+    cross-attention to the rank's encoder rows and ungated gelu MLP → one
+    final normed hidden state a rank."""
     frames, tokens = batch["frames"], batch["tokens"]
-    B, S = tokens.shape
-    Te = frames.shape[1]
     dt = _dtype(cfg)
-    device = tokens.device
-    enc_pos = torch.arange(Te, dtype=torch.int32, device=device).expand(B, Te)
-    dec_pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
-    remat = cfg.remat and torch.is_grad_enabled()
-    x = frames.to(dt) + _sinusoid(Te, cfg.d_model, dt, device)
-    (enc,), _ = _run_stack(lambda p, xs: [_enc_block(p, xs[0], enc_pos, cfg)],
-                           tree["enc_blocks"], cfg.n_enc_layers, [x], remat)
-    enc = layers.rms_norm(enc, tree["enc_ln_f"], cfg.norm_eps)
-    y = layers.embed(tree["embedding"], tokens)
-    y = y + _sinusoid(S, cfg.d_model, y.dtype, device)
-    (y,), _ = _run_stack(lambda p, ys: [_dec_block(p, ys[0], enc, dec_pos,
-                                                   cfg)],
-                         tree["dec_blocks"], cfg.n_layers, [y], remat)
-    y = layers.rms_norm(y, tree["ln_f"], cfg.norm_eps)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=device)}
-    if return_hidden:
-        return y, aux
-    return layers.unembed(tree["embedding"], y, cfg.final_softcap), aux
+    pos = lambda ts, n: [torch.arange(n, dtype=torch.int32,
+                                      device=t.device).expand(t.shape[0], n)
+                         for t in ts]
+    Te, S = frames[0].shape[1], tokens[0].shape[1]
+    enc_pos, dec_pos = pos(frames, Te), pos(tokens, S)
+    xs = [f.to(dt) + _sinusoid(Te, cfg.d_model, dt, f.device) for f in frames]
+    enc, _ = _run_stack(lambda p, xs: _enc_block(p, xs, enc_pos, cfg, mesh),
+                        tree["enc_blocks"], cfg.n_enc_layers, xs, remat)
+    ln = layers.rank_leaves(tree["enc_ln_f"], len(enc))
+    enc = [layers.rms_norm(e, ln[r], cfg.norm_eps) for r, e in enumerate(enc)]
+    ys = layers.embed_ranks(tree["embedding"], tokens)
+    ys = [y + _sinusoid(S, cfg.d_model, y.dtype, y.device) for y in ys]
+    ys, _ = _run_stack(lambda p, ys: _dec_block(p, ys, enc, dec_pos, cfg, mesh),
+                       tree["dec_blocks"], cfg.n_layers, ys, remat)
+    ln = layers.rank_leaves(tree["ln_f"], len(ys))
+    return [layers.rms_norm(y, ln[r], cfg.norm_eps) for r, y in enumerate(ys)]
 
 
 @functools.lru_cache(maxsize=32)

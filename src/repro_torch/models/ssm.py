@@ -15,6 +15,14 @@ rematerialised in the backward (the reference checkpoints each chunk);
 only the state recurrence loops over chunks.  The reference's
 ``REPRO_SSD_NAIVE`` switch (a float32 A/B variant, off by default) is not
 ported.
+
+On a ``(data, model)`` mesh (`mamba2_ranks`) the mixer splits its heads
+over ``model``, as the reference constrains ``xh`` on ``heads``: ``w_in``
+and ``w_out`` are FSDP only, so each rank gathers them and takes its heads'
+``z``, ``x`` and ``dt`` columns of ``w_in`` and the conv input's ``B`` and
+``C`` whole, runs the causal conv and the chunked SSD on its heads, and
+normalises its heads' gated output by the ranks' summed squares over
+``d_in``; its rows of ``w_out`` follow, summed over ``model``.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding
 from . import layers
 from .remat import remat_call
 
@@ -136,24 +145,13 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
 def mamba2(params, x, *, state: int, conv: int, expand: int, head_dim: int,
            chunk: int, norm_eps: float = 1e-6):
     """Full-sequence Mamba2 mixer: x (B, S, d) → (out (B, S, d), the final
-    `SSMCache`, or None when S < conv - 1)."""
+    `SSMCache`, or None when S < conv - 1): `_mamba2_heads` over every
+    head, then `mamba2_heads_out`."""
     B, S, d = x.shape
-    d_in = expand * d
-    H = d_in // head_dim
-    proj = x @ params["w_in"]
-    z, xr, Bm, Cm, dt_raw = torch.split(
-        proj, [d_in, d_in, state, state, H], dim=-1)
-    xbc_raw = torch.cat([xr, Bm, Cm], dim=-1)
-    xbc = F.silu(_causal_conv1d(xbc_raw, params["conv_w"], params["conv_b"]))
-    xr, Bm, Cm = torch.split(xbc, [d_in, state, state], dim=-1)
-    dt = softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    xh = xr.reshape(B, S, H, head_dim)
-    y, s_final = _ssd_chunked(xh, Bm, Cm, dt, A, chunk)
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_in).to(x.dtype)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"], norm_eps)
-    out = y @ params["w_out"]
+    g, s_final, xbc_raw = _mamba2_heads(
+        params, x, 0, expand * d // head_dim, state=state, expand=expand,
+        head_dim=head_dim, chunk=chunk)
+    out = mamba2_heads_out(params, g, None, 0, x.dtype, norm_eps)
     cache = None
     if S >= conv - 1:
         cache = SSMCache(state=s_final,
@@ -161,13 +159,74 @@ def mamba2(params, x, *, state: int, conv: int, expand: int, head_dim: int,
     return out, cache
 
 
+def _mamba2_heads(params, x, h0: int, n_heads: int, *, state: int,
+                  expand: int, head_dim: int, chunk: int):
+    """The full-sequence mixer of the heads ``[h0, h0 + n_heads)`` (one
+    rank's heads on a mesh, or all of them) before its norm: x (B, S, d) →
+    ``(g, s_final, xbc_raw)``: their gated output ``y * silu(z)`` (B, S,
+    n_heads P) in x's dtype, their final SSD state (B, n_heads, N, P) fp32
+    and the conv's input (B, S, n_heads P + 2N).  One product takes those
+    heads' ``z`` and ``x`` columns of ``w_in``, the conv input's ``B`` and
+    ``C`` (whole) and the heads' ``dt`` columns; the depthwise conv runs on
+    those channels."""
+    B, S, d = x.shape
+    d_in = expand * d
+    lo, hi = h0 * head_dim, (h0 + n_heads) * head_dim
+    w, cw, cb = params["w_in"], params["conv_w"], params["conv_b"]
+    if hi - lo < d_in:                   # a rank's heads: their columns
+        dt0 = 2 * d_in + 2 * state + h0
+        w = torch.cat([w[:, lo:hi], w[:, d_in + lo:d_in + hi],
+                       w[:, 2 * d_in:2 * d_in + 2 * state],
+                       w[:, dt0:dt0 + n_heads]], dim=1)
+        cw = torch.cat([cw[:, lo:hi], cw[:, d_in:]], dim=1)
+        cb = torch.cat([cb[lo:hi], cb[d_in:]])
+    n = hi - lo
+    z, xbc_raw, dt_raw = torch.split(x @ w, [n, n + 2 * state, n_heads],
+                                     dim=-1)
+    xbc = F.silu(_causal_conv1d(xbc_raw, cw, cb))
+    xr, Bm, Cm = torch.split(xbc, [n, state, state], dim=-1)
+    dt = softplus(dt_raw.float() + params["dt_bias"][h0:h0 + n_heads])
+    A = -torch.exp(params["A_log"][h0:h0 + n_heads])
+    xh = xr.reshape(B, S, n_heads, head_dim)
+    y, s_final = _ssd_chunked(xh, Bm, Cm, dt, A, chunk)
+    y = y + params["D"][None, None, h0:h0 + n_heads, None] * xh.float()
+    return y.reshape(B, S, n).to(x.dtype) * F.silu(z), s_final, xbc_raw
+
+
+def mamba2_ranks(params, hs: list, mesh, *, state: int, conv: int,
+                 expand: int, head_dim: int, chunk: int,
+                 norm_eps: float = 1e-6) -> list:
+    """`mamba2`'s output of one activation a rank, one body for every
+    case: `_mamba2_heads` on a rank's heads, the gated RMSNorm by their
+    sum of squares, then ``w_out``'s rows of those heads
+    (`mamba2_heads_out`).  The heads split over ``model`` where they split
+    evenly, the squares and the outputs then summed over ``model``, in the
+    activations' dtype; otherwise (and on one device, with no ``mesh``)
+    each rank gathers the weights and runs every head."""
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    H = expand * hs[0].shape[-1] // head_dim
+    split = M > 1 and H % M == 0
+    Hl = H // M if split else H
+    h0s = [sharding.axis_index(mesh, r, "model") * Hl if split else 0
+           for r in range(len(hs))]
+    w = layers.gathered_tree(params)
+    gs = [_mamba2_heads(w[r], h, h0s[r], Hl, state=state, expand=expand,
+                        head_dim=head_dim, chunk=chunk)[0]
+          for r, h in enumerate(hs)]
+    sq = (sharding.psum([(g.float() * g.float()).sum(-1) for g in gs], mesh,
+                        "model") if split else [None] * len(gs))
+    outs = [mamba2_heads_out(w[r], g, sq[r], h0s[r] * head_dim, g.dtype,
+                             norm_eps) for r, g in enumerate(gs)]
+    return sharding.psum(outs, mesh, "model") if split else outs
+
+
 def mamba2_decode_step(params, x, cache: SSMCache, *, state: int, expand: int,
                        head_dim: int, norm_eps: float = 1e-6):
     """Single-token decode: x (B, 1, d) → (out (B, 1, d), new SSMCache):
-    `mamba2_decode_heads` over every head, then `mamba2_decode_out`."""
+    `mamba2_decode_heads` over every head, then `mamba2_heads_out`."""
     g, new = mamba2_decode_heads(params, x[:, 0], cache, 0, state=state,
                                  expand=expand, head_dim=head_dim)
-    out = mamba2_decode_out(params, g, (g * g).sum(-1), 0, x.dtype, norm_eps)
+    out = mamba2_heads_out(params, g, None, 0, x.dtype, norm_eps)
     return out[:, None, :], new
 
 
@@ -210,18 +269,17 @@ def mamba2_decode_heads(params, h, cache: SSMCache, h0: int, *, state: int,
     return g, SSMCache(state=s, conv_buf=new_tail)
 
 
-def mamba2_decode_out(params, g, sq, lo: int, dtype, norm_eps: float,
-                      sum_dtype=None):
-    """The gated RMSNorm of ``g (B, n)``, columns ``[lo, lo + n)`` of
-    ``d_in``, by ``sq (B,)``, the sum of squares over all of ``d_in`` (the
-    ranks' sum on a mesh), then ``w_out``'s rows ``[lo, lo + n)`` → (B, d)
-    in ``dtype``, or with ``sum_dtype`` the product in it, for a sum over
-    the ranks."""
+def mamba2_heads_out(params, g, sq, lo: int, dtype, norm_eps: float,
+                     sum_dtype=None):
+    """The gated RMSNorm of ``g (..., n)``, columns ``[lo, lo + n)`` of
+    ``d_in``, by ``sq (...)``, the float32 sum of squares over all of
+    ``d_in`` (the ranks' sum on a mesh; None where ``g`` is all of it), then ``w_out``'s rows ``[lo, lo +
+    n)`` → (..., d) in ``dtype``, or with ``sum_dtype`` the product in it,
+    for a sum over the ranks."""
     d_in = params["norm_w"].shape[-1]
     hi = lo + g.shape[-1]
-    var = sq * sq.new_full((), 1.0 / d_in)            # `core.util.mean_last`
-    y = g * torch.rsqrt(var + norm_eps)[:, None]
-    y = (y * (1.0 + params["norm_w"][lo:hi].float())).to(dtype)
+    y = layers.rms_norm(g, params["norm_w"][lo:hi], norm_eps, sq=sq,
+                        n=d_in).to(dtype)
     if sum_dtype is None:
         return y @ params["w_out"][lo:hi]
     return y.to(sum_dtype) @ params["w_out"][lo:hi].to(sum_dtype)

@@ -7,6 +7,18 @@ scans; the decode runs them on sequences of length 1, so its state is O(1).
 mLSTM: per-head matrix memory C (Pv, Pk), normaliser n (Pk), stabiliser m.
 sLSTM: per-head scalar-memory cell with block-diagonal recurrent weights.
 
+On a ``(data, model)`` mesh (`mlstm_ranks`, `slstm_ranks`) the mLSTM splits
+its heads over ``model`` where ``d_in / model`` falls on whole heads (the
+reference constrains nothing here, but its specs split ``w_up``,
+``w_gate``, ``w_q`` on their columns and ``w_down`` on its rows by name):
+each rank gathers ``w_up`` whole (every head's query, key and value reads
+all of ``up``), takes its heads' columns of ``w_q``, ``w_k``, ``w_v`` and
+the gates, runs the cell on its heads, normalises by the ranks' summed
+squares and takes its rows of ``w_down``, summed over ``model``; otherwise
+it gathers every weight and runs every head on every rank.  The sLSTM
+gathers its weights and runs whole on every rank.  The time loops run on
+each rank's rows of the batch.
+
 The stabiliser m starts at -inf.  Where it is still -inf, the reference
 selects ``m_new = i_raw`` and ``f = 0`` with ``jnp.where`` and discards the
 other branch; the port selects the same values, and computes that branch
@@ -21,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.util import fp32_reciprocal
+from ..parallel import sharding
 from . import layers
 from .ssm import softplus
 
@@ -94,29 +107,89 @@ def _mlstm_cell(state: MLSTMState, q, k, v, i_raw, f_raw):
 
 def mlstm(params, x, *, n_heads: int, expand: int = 2, norm_eps: float = 1e-6,
           state: Optional[MLSTMState] = None):
-    """Full-sequence mLSTM mixer.  x (B, S, d) → (out, final state)."""
+    """Full-sequence mLSTM mixer.  x (B, S, d) → (out, final state):
+    `_mlstm_heads` over every head, then `_mlstm_out`."""
+    h, gate, state = _mlstm_heads(params, x, 0, n_heads, n_heads=n_heads,
+                                  expand=expand, state=state)
+    return _mlstm_out(params, h, gate, None, 0, norm_eps), state
+
+
+def _mlstm_heads(p, x, h0: int, n: int, *, n_heads: int, expand: int,
+                 state: Optional[MLSTMState] = None):
+    """The mLSTM cell of the heads ``[h0, h0 + n)`` (one rank's heads on a
+    mesh, or all of them) before its norm: x (B, S, d) → (h (B, S, n P) in
+    x's dtype, the gate's pre-activation (B, S, n P), the final state).
+    ``w_gate`` and ``w_q`` hold those heads' columns and ``w_down`` their
+    rows (the whole weights when ``n`` is ``n_heads``); the other leaves
+    are whole."""
     B, S, d = x.shape
-    d_in = expand * d
     H = n_heads
-    P = d_in // H
-    up = x @ params["w_up"]
-    gate = x @ params["w_gate"]
+    P = expand * d // H
+    lo, hi = h0 * P, (h0 + n) * P
     inv = fp32_reciprocal(math.sqrt(P))
-    q = (up @ params["w_q"]).reshape(B, S, H, P).float() * inv
-    k = (up @ params["w_k"]).reshape(B, S, H, P).float() * inv
-    v = (up @ params["w_v"]).reshape(B, S, H, P).float()
-    ifg = (up @ params["w_if"]).float() + params["b_if"]
-    i_raw, f_raw = torch.split(ifg.reshape(B, S, 2 * H), H, dim=-1)
+    up = x @ p["w_up"]
+    heads = lambda t: t.reshape(B, S, n, P).float()
+    q = heads(up @ p["w_q"]) * inv
+    k = heads(up @ p["w_k"][:, lo:hi]) * inv
+    v = heads(up @ p["w_v"][:, lo:hi])
+    ifg = (up @ p["w_if"]).float() + p["b_if"]
+    i_raw, f_raw = ifg[..., h0:h0 + n], ifg[..., H + h0:H + h0 + n]
     if state is None:
-        state = mlstm_init_state(B, H, P, x.device)
+        state = mlstm_init_state(B, n, P, x.device)
     hs = []
     for t in range(S):
         state, h = _mlstm_cell(state, q[:, t], k[:, t], v[:, t],
                                i_raw[:, t], f_raw[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d_in).to(x.dtype)
-    h = layers.rms_norm(h, params["norm_w"], norm_eps) * F.silu(gate)
-    return h @ params["w_down"], state
+    h = torch.stack(hs, dim=1).reshape(B, S, n * P).to(x.dtype)
+    return h, x @ p["w_gate"], state
+
+
+def _mlstm_out(p, h, gate, sq, lo: int, norm_eps: float):
+    """The norm of ``h (B, S, n)``, columns ``[lo, lo + n)`` of ``d_in``, by
+    ``sq``, the float32 sum of squares over all of ``d_in`` (the ranks' sum
+    on a mesh; None where ``h`` is all of it), gated, then ``w_down`` (those columns' rows)."""
+    w = p["norm_w"][lo:lo + h.shape[-1]]
+    y = layers.rms_norm(h, w, norm_eps, sq=sq, n=p["norm_w"].shape[-1])
+    return (y * F.silu(gate)) @ p["w_down"]
+
+
+def mlstm_ranks(params, hs: list, mesh, *, n_heads: int, expand: int = 2,
+                norm_eps: float = 1e-6) -> list:
+    """`mlstm`'s output of one activation a rank, one body for every case:
+    `_mlstm_heads` on a rank's heads, then `_mlstm_out`.  The heads split
+    over ``model`` where ``w_gate`` and ``w_q`` split their columns and
+    ``w_down`` its rows over ``model`` alone and ``d_in / model`` falls on
+    whole heads: a rank takes those blocks, gathers the rest whole, and the
+    squares and the outputs are summed over ``model``.  Otherwise (and on
+    one device, with no ``mesh``) each rank gathers every weight and runs
+    every head."""
+    M = mesh.shape.get("model", 1) if mesh is not None else 1
+    H = n_heads
+    split = (M > 1 and H % M == 0
+             and all(layers._model_split(params[k], -1)
+                     for k in ("w_gate", "w_q"))
+             and layers._model_split(params["w_down"], -2))
+    if split:
+        local = {k: params[k].gathered(keep=("model",))
+                 for k in ("w_gate", "w_q", "w_down")}
+        whole = {k: layers.rank_leaves(v, len(hs)) for k, v in params.items()
+                 if k not in local}
+        w = [{k: v[r] for k, v in {**whole, **local}.items()}
+             for r in range(len(hs))]
+    else:
+        w = layers.gathered_tree(params)
+    Hl = H // M if split else H
+    h0s = [sharding.axis_index(mesh, r, "model") * Hl if split else 0
+           for r in range(len(hs))]
+    P = expand * hs[0].shape[-1] // H
+    outs = [_mlstm_heads(w[r], x, h0s[r], Hl, n_heads=H, expand=expand)
+            for r, x in enumerate(hs)]
+    sq = (sharding.psum([(h.float() * h.float()).sum(-1) for h, _, _ in outs],
+                        mesh, "model") if split else [None] * len(outs))
+    parts = [_mlstm_out(w[r], h, g, sq[r], h0s[r] * P, norm_eps)
+             for r, (h, g, _) in enumerate(outs)]
+    return sharding.psum(parts, mesh, "model") if split else parts
 
 
 # ---------------------------------------------------------------------------
@@ -187,3 +260,12 @@ def slstm(params, x, *, n_heads: int, norm_eps: float = 1e-6,
     h = torch.stack(hs, dim=1).to(x.dtype)
     h = layers.rms_norm(h, params["norm_w"], norm_eps)
     return h @ params["w_out"], state
+
+
+def slstm_ranks(params, hs: list, *, n_heads: int,
+                norm_eps: float = 1e-6) -> list:
+    """`slstm`'s output of one activation a rank, its weights gathered
+    whole (with no mesh, `slstm` on one device)."""
+    w = layers.gathered_tree(params)
+    return [slstm(w[r], h, n_heads=n_heads, norm_eps=norm_eps)[0]
+            for r, h in enumerate(hs)]

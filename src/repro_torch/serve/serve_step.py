@@ -576,7 +576,7 @@ def _mla_block(p, xs: list, cc, krc, length: int, cfg: ModelConfig,
 
 def _mamba2_block(p, xs: list, st, cb, cfg: ModelConfig, ms: _Ranks) -> list:
     """Mamba2's decode step (`ssm.mamba2_decode_heads`, then
-    `ssm.mamba2_decode_out`), split by heads over ``model`` as ``ssm_state``
+    `ssm.mamba2_heads_out`), split by heads over ``model`` as ``ssm_state``
     is: each rank projects ``z``, ``x`` and ``dt`` for its heads and the
     conv input whole (the conv tail stays whole and replicated), updates
     its heads' state, and normalises its heads' gated output by the ranks'
@@ -604,7 +604,7 @@ def _mamba2_block(p, xs: list, st, cb, cfg: ModelConfig, ms: _Ranks) -> list:
     sq = [(g * g).sum(-1) for g in gs]
     if heads:
         sq = sharding.psum(sq, mesh, heads)
-    outs = [ssm.mamba2_decode_out(w[r], g, sq[r], cols[r], xs[r].dtype,
+    outs = [ssm.mamba2_heads_out(w[r], g, sq[r], cols[r], xs[r].dtype,
                                   cfg.norm_eps, SUM_DTYPE if heads else None)
             for r, g in enumerate(gs)]
     if heads:

@@ -24,14 +24,17 @@ scan does.
 On a ``(data, model)`` mesh (``make_train_step(cfg, optimizer, mesh)``) the
 state's parameters and optimizer state are trees of
 `parallel.sharding.Sharded` leaves placed by `parallel.param_specs`, and
-the batch splits its rows over the data axes.  The whole sharded step is
-one autograd graph: the backward of each layer's FSDP gather delivers
-every block its gradient summed over the ranks that read it, and a leaf's
-equal copies (the ranks its spec does not split over) then add their
-gradients, in rank order, so every copy holds the whole gradient.  The
-loss is each data shard's token sum (computed on its rank at model index
-0) added over the shards and divided by the global token count.
-``grad_norm`` counts one copy of each block.
+every input of the batch splits its rows over the data axes
+(`param_specs.batch_shardings`); every family trains there.  The whole
+sharded step is one autograd graph: the backward of each layer's FSDP
+gather delivers every block its gradient summed over the ranks that read
+it, and a leaf's equal copies (the ranks its spec does not split over)
+then add their gradients, in rank order, so every copy holds the whole
+gradient.  The loss (and the MTP head's) is each data shard's token sum
+(computed on its rank at model index 0) added over the shards and divided
+by the global token count.  ``grad_norm`` counts one copy of each block.
+Microbatches are the global batch's consecutive row blocks, as the
+reference's are, each then split over the data axes.
 """
 from __future__ import annotations
 
@@ -102,18 +105,19 @@ def _xent_sum(hidden: torch.Tensor, emb_params, targets: torch.Tensor,
 
 def _loss_mesh(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
     """`loss_fn` on a mesh: the forward on each rank's rows, then each data
-    shard's cross-entropy sum on its rank at model index 0, the shards'
-    sums added in order on the mesh's first device, over the global
-    token count."""
+    shard's cross-entropy sums (and the MTP head's, two positions ahead) on
+    its rank at model index 0, the shards' sums added in order on the
+    mesh's first device, over the global token counts."""
     mesh = ctx.mesh
+    batch = model_lib.shard_batch(batch, mesh)
     tokens = batch["tokens"]
-    if not isinstance(tokens, Sharded):
-        tokens = ctx.constrain(tokens, "batch", None)
-    xs, aux = model_lib.forward_ranks(params, cfg, tokens.shards, mesh)
+    xs, aux = model_lib.forward_ranks(
+        params, cfg, {k: v.shards for k, v in batch.items()}, mesh)
     emb = layers.unembed_weights(params["embedding"])
     dp = param_specs.batch_axes(mesh)
     first = mesh.devices[0]
-    total = None
+    mtp = aux.get("mtp_hidden") if cfg.mtp_depth else None
+    total = mtp_total = None
     for r, x in enumerate(xs):
         c = mesh.coords(r)
         if any(ci for a, ci in zip(mesh.axis_names, c) if a not in dp):
@@ -122,12 +126,22 @@ def _loss_mesh(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
         part = _xent_sum(x[:, :-1], emb[r], t[:, 1:],
                          cfg.final_softcap).to(first)
         total = part if total is None else total + part
+        if mtp is not None:
+            part = _xent_sum(mtp[r][:, :-2], emb[r], t[:, 2:],
+                             cfg.final_softcap).to(first)
+            mtp_total = part if mtp_total is None else mtp_total + part
     B, S = tokens.shape
     loss = total * fp32_reciprocal(B * (S - 1))
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=first)
-    metrics = {"ce": loss, "moe_aux": aux}
-    metrics["loss"] = total_loss = loss + aux
+    moe_aux = aux["moe_aux"]
+    if moe_aux is None:
+        moe_aux = torch.zeros((), dtype=torch.float32, device=first)
+    metrics = {"ce": loss, "moe_aux": moe_aux}
+    total_loss = loss + moe_aux
+    if mtp is not None:
+        # depth-1 MTP predicts token t+2 from position t
+        metrics["mtp_ce"] = mtp_loss = mtp_total * fp32_reciprocal(B * (S - 2))
+        total_loss = total_loss + cfg.mtp_coef * mtp_loss
+    metrics["loss"] = total_loss
     return total_loss, metrics
 
 
@@ -281,8 +295,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None):
     acc_dt = torch.bfloat16 if cfg.grad_accum_dtype == "bfloat16" \
         else torch.float32
     ctx = make_ctx(mesh)
-    if mesh is not None:
-        model_lib.check_mesh_family(cfg)
 
     def init_state(gen: torch.Generator, device="cuda") -> TrainState:
         params = model_lib.init_params(cfg, gen, device)
@@ -305,6 +317,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None):
             raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does "
                              f"not split into {n_micro} microbatches")
         rows = batch["tokens"].shape[0] // n_micro
+        # microbatch i is rows [i * rows, (i + 1) * rows) of the global
+        # batch (assembled on the mesh's first device when it is split)
+        batch = {k: v.full() if isinstance(v, Sharded) else v
+                 for k, v in batch.items()}
         g_acc = m_acc = None
         for i in range(n_micro):
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}

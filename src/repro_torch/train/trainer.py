@@ -23,6 +23,11 @@ the state lives on the mesh (`train_step.make_train_step`), each batch is
 split over its data axes from the host, and a checkpoint holds the
 gathered tree in the reference's format (assembled on the host); a resume
 restores it on the host and places it by the running state's specs.
+
+The token stream feeds tokens alone, so the families whose batches also
+hold a frontend's outputs (encdec's ``frames``, vlm's ``patches``) are
+refused: they train through `train_step.make_train_step` on
+`launch.inputs.make_batch`'s batches, on one device or a mesh.
 ``ckpt_every <= 0`` writes no checkpoint at all (the port's addition: a
 state too large to gather on the host, as a model trained across cards
 is).
@@ -88,6 +93,12 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, data_cfg: DataConfig,
                  cfg: TrainerConfig, device="cuda",
                  log_fn: Callable[[str], None] = print, mesh=None):
+        if model_cfg.family in ("encdec", "vlm"):
+            raise ValueError(
+                f"{model_cfg.arch_id}: the Trainer feeds tokens only, and a "
+                f"{model_cfg.family} batch also needs its frontend's "
+                "outputs; train it through train_step.make_train_step with "
+                "launch.inputs.make_batch")
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.cfg = cfg

@@ -33,8 +33,10 @@ masked softmax, the drift monitor's one chunk a batch against the
 per-example SW-AKDE updates, a train step that repeats bit for bit, and
 one train step of each other family's smoke config equal to the CPU's.
 LM training on a (data, model) mesh: a 2 x 2 mesh of one card repeated
-equal to the same mesh on the CPU (dense and ``moe_ep``), and cards 0..3
-equal to one card repeated.  Decode on a mesh: `sketch_decode_attn`'s
+equal to the same mesh on the CPU (dense and ``moe_ep``), the hybrid's
+Mamba2 heads split over ``model`` equal to one device, and cards 0..3 equal
+to one card repeated (deepseek-moe-16b, and deepseek-v3's MLA, MoE and MTP
+head).  Decode on a mesh: `sketch_decode_attn`'s
 partial entry (a rank's block of a sequence: the output and its
 log-sum-exp) against its plain version, four blocks' partials merged equal
 to the whole-cache kernel, the smoke decodes on a 2 x 2 mesh of one card
@@ -1522,6 +1524,70 @@ def test_mesh_on_four_cards_matches_one_card_repeated(dev):
     tree = model.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
     tokens = torch.randint(0, cfg.vocab, (8, 32),
                            generator=torch.Generator().manual_seed(8))
+    got = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
+    again = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
+    assert {k: float(v) for k, v in got[2].items()} == \
+        {k: float(v) for k, v in again[2].items()}
+    for a, b in zip(got[:2], again[:2]):
+        for (k, x), (_, y) in zip(_flatten(a), _flatten(b)):
+            assert torch.equal(x, y), k
+    want = _mesh_step(cfg, make_test_mesh(2, 2, "cuda:0"), tree, tokens)
+    _assert_mesh_step_close(got, want, lambda k: 1e-4, mtol=1e-6, ntol=1e-6)
+
+
+def test_hybrid_head_split_on_the_card_matches_one_device(dev):
+    """The zamba2 smoke step (fp32) on a 2 x 2 mesh of one card repeated,
+    Mamba2's heads over ``model``, against the one-device step on the same
+    card: the intra-chunk scores are rounded to bfloat16 on both paths, so
+    a score whose float32 value moves in its last bit with another product
+    shape rounds one ulp apart; the gradients and the gradient norm within
+    one bfloat16 ulp (2^-8) of their largest, the metrics within 1e-5
+    relative, the parameters by `_assert_mesh_step_close`."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import tree_map
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adam
+    from repro_torch.train import train_step
+    cfg = dataclasses.replace(registry.get_smoke_config("zamba2-2.7b"),
+                              param_dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (8, 32),
+                           generator=torch.Generator().manual_seed(10))
+    card = torch.device("cuda", 0)
+    got = _mesh_step(cfg, make_test_mesh(2, 2, card), tree, tokens)
+    opt = adam.adamw(lr=MESH_LR, warmup=1)
+    step, _ = train_step.make_train_step(cfg, opt)
+    params = tree_map(lambda x: x.to(card), tree)
+    state = train_step.TrainState(params, opt.init(params),
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=card))
+    state, m = step(state, {"tokens": tokens.to(card)})
+    want = (tree_map(lambda x: x.cpu(), state.params),
+            tree_map(lambda x: x.cpu(), state.opt_state.m), m)
+    _assert_mesh_step_close(got, want, lambda k: 2.0 ** -8, ntol=2.0 ** -8)
+
+
+def test_v3_mesh_on_four_cards_matches_one_card_repeated(dev):
+    """The deepseek-v3 smoke step (fp32, one microbatch: MLA split by
+    heads, the MoE expert-parallel, the MTP head) on cuda:0..3 (data 2 x
+    model 2) repeats bit for bit and equals the same mesh on cuda:0
+    repeated at `test_mesh_on_four_cards_matches_one_card_repeated`'s
+    bounds: metrics within 1e-6 relative, gradients within 1e-4 of their
+    largest."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model
+    cfg = dataclasses.replace(registry.get_smoke_config("deepseek-v3-671b"),
+                              param_dtype="float32", grad_microbatches=1)
+    tree = model.init_params(cfg, torch.Generator().manual_seed(11), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (8, 32),
+                           generator=torch.Generator().manual_seed(12))
     got = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
     again = _mesh_step(cfg, make_test_mesh(2, 2, "cuda"), tree, tokens)
     assert {k: float(v) for k, v in got[2].items()} == \

@@ -26,9 +26,10 @@ cache, the bfloat16 cross cache within one bf16 ulp; block signatures equal; the
 mesh's ``last_live`` equal to the port's one-device lists.  The partials'
 plain versions merged over 1, 2 and 4 ranks (a rank with nothing live, a
 rank with only the current block) against the reference's
-``decode_attention``, and the refusals (training on a mesh for the
-families it does not take yet, unplaced weights, a rank's block of the
-sequence that is not whole sketch blocks, a full cache).
+``decode_attention``, and the refusals (unplaced weights, a rank's block
+of the sequence that is not whole sketch blocks, a full cache); the train
+step on a mesh, which refused five families before they trained there,
+builds for each of them.
 """
 import dataclasses
 
@@ -48,9 +49,11 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.sketch_decode_attn import block_mask, compact_live
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import model as tmodel
+from repro_torch.optim import adam as tadam
 from repro_torch.parallel import param_specs, sharding
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve import serve_step as tserve
+from repro_torch.train import train_step as tts
 
 from torch_parity import assert_rel, fast_jit, lm_tree_np, port_model_cfg
 
@@ -273,9 +276,9 @@ def test_mesh_refusals():
     mesh = make_test_mesh(2, 2, "cpu")
     for arch in ("zamba2-2.7b", "xlstm-125m", "whisper-large-v3",
                  "internvl2-76b", "deepseek-v3-671b"):
-        cfg = tregistry.get_smoke_config(arch)
-        with pytest.raises(ValueError, match=r"ROADMAP\.md, queue 1, item 8"):
-            tmodel.check_mesh_family(cfg)
+        step, init = tts.make_train_step(tregistry.get_smoke_config(arch),
+                                         tadam.adamw(), mesh)
+        assert callable(step) and callable(init)
     # a rank's sketch block must be whole 512-token blocks
     cfg = dataclasses.replace(tregistry.get_smoke_config("gemma3-4b"),
                               param_dtype="float32")

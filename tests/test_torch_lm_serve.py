@@ -29,8 +29,10 @@ from repro.configs import registry as jregistry
 from repro.models import model as jmodel
 from repro.serve import serve_step as jserve
 from repro_torch import convert
+from repro_torch.checkpoint.checkpoint import tree_map
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import model as tmodel
+from repro_torch.parallel import param_specs
 from repro_torch.parallel.sharding import Mesh, make_ctx
 from repro_torch.serve import serve_step as tserve
 
@@ -181,8 +183,9 @@ def test_sketch_decode_bf16_within_reference_bound(monkeypatch):
 
 def test_registry_lists_only_ported_configs():
     """Every architecture of the reference is listed, decodes and runs its
-    forward (deepseek-v3's with the MTP head); what the port still refuses
-    is an MLA model on a (data, model) mesh."""
+    forward (deepseek-v3's with the MTP head), on one device and on a
+    (data, model) mesh (MLA split by heads), where weights not placed by
+    ``param_specs`` are refused."""
     assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS)
     cfg = tregistry.get_smoke_config("deepseek-v3-671b")
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -191,5 +194,16 @@ def test_registry_lists_only_ported_configs():
         logits, aux = tmodel.forward(params, cfg, {"tokens": tokens})
     assert logits.shape == aux["mtp_logits"].shape == (1, 4, cfg.vocab)
     mesh = Mesh(("cpu",) * 2, axis_names=("data", "model"), axis_sizes=(1, 2))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="shard_params"):
         tmodel.forward(params, cfg, {"tokens": tokens}, ctx=make_ctx(mesh))
+    # in float32 the mesh's logits are the one device's but for the MoE
+    # ranks' bfloat16 combine (moe_ep's bound: 2e-2 of the largest)
+    cfg = dataclasses.replace(cfg, param_dtype="float32")
+    params = tree_map(lambda x: x.float(), params)
+    with torch.no_grad():
+        want, waux = tmodel.forward(params, cfg, {"tokens": tokens})
+        got, gaux = tmodel.forward(param_specs.shard_params(params, mesh), cfg,
+                                   {"tokens": tokens}, ctx=make_ctx(mesh))
+    for a, b in ((got, want), (gaux["mtp_logits"], waux["mtp_logits"])):
+        assert float((a.full("cpu") - b).abs().max()) <= \
+            2e-2 * float(b.abs().max())

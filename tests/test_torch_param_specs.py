@@ -11,7 +11,12 @@ compile) and through the port's over a `Mesh` of CPU entries of the same
 shape.  Every leaf's spec must be equal, on meshes (2, 4), (1, 4) and
 (pod 2, data 16, model 16) with ``fsdp_over_pod`` off and on.  Placement
 (`param_specs.shard_params` / `gather_params`) is exact and follows the
-specs: each rank holds its block, and gathering gives the tree back.
+specs: each rank holds its block, and gathering gives the tree back.  A
+reference bfloat16 train state (AdamW) of each family that trains on a mesh
+since the hybrid, ssm, encdec, vlm and MLA + MTP families joined the dense
+and moe ones (`convert.train_state_from_numpy(mesh=)`) lands with every
+leaf's spec the reference's ``param_shardings`` / ``opt_state_shardings``
+and its dtype kept, and gathers back to the reference's values.
 """
 import dataclasses
 
@@ -22,15 +27,21 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh
 
+from repro.configs import registry as jregistry
 from repro.optim import adam as jadam
 from repro.parallel import param_specs as jspecs
+from repro.train import train_step as jts
+from repro_torch import convert
+from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import registry
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.optim import adam as tadam
 from repro_torch.parallel import param_specs as tspecs
-from repro_torch.parallel.sharding import Mesh
+from repro_torch.parallel.sharding import Mesh, Sharded
+
+from torch_parity import lm_tree_np
 
 MESHES = {"2x4": ((2, 4), ("data", "model"), False),
           "1x4": ((1, 4), ("data", "model"), False),
@@ -129,3 +140,36 @@ def test_shard_and_gather_params_round_trip():
     back = tspecs.gather_params(sh, "cpu")
     for _, a, b in tspecs.leaves_with_paths(tree, back):
         assert torch.equal(a, b)
+
+
+def test_train_state_from_numpy_places_every_family():
+    for arch in ("deepseek-v3-671b", "zamba2-2.7b", "xlstm-125m",
+                 "whisper-large-v3", "internvl2-76b"):
+        _check_placed_state(arch)
+
+
+def _check_placed_state(arch):
+    cfg = jregistry.get_smoke_config(arch)         # bfloat16, as published
+    tree = lm_tree_np(cfg, 21)
+    moments = jax.tree.map(lambda x: np.full(x.shape, 0.25, np.float32), tree)
+    state = jts.TrainState(params=tree, opt_state=jadam.AdamState(
+        step=np.int32(3), m=moments, v=moments), step=np.int32(3))
+    mesh = make_test_mesh(2, 2, "cpu")
+    got = convert.train_state_from_numpy(state, mesh=mesh)
+    jmesh = AbstractMesh((2, 2), ("data", "model"))
+    sds = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), tree)
+    pj = jspecs.param_shardings(sds, jmesh)
+    oj = jspecs.opt_state_shardings(jadam.AdamState(
+        step=jax.ShapeDtypeStruct((), jnp.int32), m=sds, v=sds), pj, jmesh)
+    assert _port_specs(tspecs.specs_of(got.params)) == _ref_specs(pj)
+    assert _port_specs(tspecs.specs_of(got.opt_state.m)) == _ref_specs(oj.m)
+    assert _port_specs(tspecs.specs_of(got.opt_state.v)) == _ref_specs(oj.v)
+    back = convert.train_state_to_numpy(got)
+    for (k, x), (_, y), (_, b) in zip(tckpt._flatten(got.params),
+                                      tckpt._flatten(tree),
+                                      tckpt._flatten(back["params"])):
+        assert isinstance(x, Sharded), k
+        assert x.dtype == (torch.float32 if y.dtype == np.float32
+                           else torch.bfloat16), k
+        np.testing.assert_array_equal(b, np.asarray(y, np.float32), err_msg=k)
+    assert int(back["step"]) == 3 and int(back["opt_state"]["step"]) == 3
